@@ -1,0 +1,31 @@
+"""PyTorch/CUDA port of the NLOS Gaussian transient renderer.
+
+The JAX package `nlos_gaussian_renderer_tpu` beside this one is the reference:
+every module here mirrors the module of the same name there and is held
+against it by `tests/test_torch_*.py`. This package imports `torch` and never
+`jax` (nor anything of the JAX package), so the numpy-only pieces it needs are
+copied rather than imported.
+
+Conventions:
+  - `GaussianScene` is an `nn.Module`; everything else is plain functions on
+    tensors, which follow their inputs' device. Functions that create tensors
+    from host data take an explicit `device`.
+  - Randomness comes from a caller's `torch.Generator` or from numpy.
+  - The four Pallas kernels of the `pallas_rsort` path are CUDA C++ kernels
+    under `csrc/`, built on first use (`ops/cuda_build.py`). Each wrapper in
+    `ops/fused_rsort.py` launches its kernel for CUDA tensors and runs the
+    plain PyTorch version beside it for CPU tensors.
+"""
+
+__version__ = "0.1.0"
+
+from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
+from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene, init_scene
+
+__all__ = [
+    "Config",
+    "OptimizationParams",
+    "GaussianScene",
+    "init_scene",
+    "__version__",
+]

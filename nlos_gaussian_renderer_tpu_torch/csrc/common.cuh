@@ -1,0 +1,134 @@
+// Shared device helpers of the rsort kernels: rect-word membership, the
+// tile-centred form transform and its transpose, and block-wide int scans.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define NLOS_FDIM 10
+
+// Rect word layout, MSB first: [valid | th_lo(b_t) | th_hi(b_t) |
+// ph_lo(b_p) | ph_hi(b_p)] (the JAX package's `_rect_bits`). Integer shifts
+// and masks decode it; word 0 (padding, culled rows) is never a member.
+__device__ __forceinline__ bool rect_member(int word, int t, int n_pt,
+                                            int b_t, int b_p) {
+  const int mp = (1 << b_p) - 1, mt = (1 << b_t) - 1;
+  const int ph_hi = word & mp;
+  const int ph_lo = (word >> b_p) & mp;
+  const int th_hi = (word >> (2 * b_p)) & mt;
+  const int th_lo = (word >> (2 * b_p + b_t)) & mt;
+  const int valid = word >> (2 * b_p + 2 * b_t);
+  const int tt = t / n_pt, pt = t % n_pt;
+  return valid > 0 && tt >= th_lo && tt <= th_hi && pt >= ph_lo &&
+         pt <= ph_hi;
+}
+
+// The quadratic form and the centre transform cancel terms up to ~1e4 times
+// larger than their result (a 1 m radial tile of 2 mm Gaussians), so each
+// operation is spelled as a round-to-nearest intrinsic, in the order of the
+// plain PyTorch version (`fused_rsort._center_transform`, `_quad`): no FMA
+// contraction, and the two agree to the last bit before the exp.
+#define MUL __fmul_rn
+#define ADD __fadd_rn
+
+// g' = T(g; x0): A' = A, b' = b + 2 A x0, c' = c + b.x0 + x0^T A x0, with
+// the packed form [A00, A11, A22, 2A01, 2A02, 2A12, b0, b1, b2, c].
+__device__ __forceinline__ void center_transform(const float* g, float x0,
+                                                 float y0, float z0,
+                                                 float* out) {
+  out[0] = g[0];
+  out[1] = g[1];
+  out[2] = g[2];
+  out[3] = g[3];
+  out[4] = g[4];
+  out[5] = g[5];
+  out[6] = ADD(ADD(ADD(g[6], MUL(MUL(2.0f, g[0]), x0)), MUL(g[3], y0)),
+               MUL(g[4], z0));
+  out[7] = ADD(ADD(ADD(g[7], MUL(MUL(2.0f, g[1]), y0)), MUL(g[3], x0)),
+               MUL(g[5], z0));
+  out[8] = ADD(ADD(ADD(g[8], MUL(MUL(2.0f, g[2]), z0)), MUL(g[4], x0)),
+               MUL(g[5], y0));
+  float c = g[9];
+  c = ADD(c, MUL(g[6], x0));
+  c = ADD(c, MUL(g[7], y0));
+  c = ADD(c, MUL(g[8], z0));
+  c = ADD(c, MUL(MUL(g[0], x0), x0));
+  c = ADD(c, MUL(MUL(g[1], y0), y0));
+  c = ADD(c, MUL(MUL(g[2], z0), z0));
+  c = ADD(c, MUL(MUL(g[3], x0), y0));
+  c = ADD(c, MUL(MUL(g[4], x0), z0));
+  c = ADD(c, MUL(MUL(g[5], y0), z0));
+  out[9] = c;
+}
+
+// q = g . x summed in index order.
+__device__ __forceinline__ float quad(const float* g, const float* x) {
+  float q = MUL(g[0], x[0]);
+#pragma unroll
+  for (int f = 1; f < NLOS_FDIM; ++f) q = ADD(q, MUL(g[f], x[f]));
+  return q;
+}
+
+// Transpose of center_transform in g (centred cotangent -> original basis).
+__device__ __forceinline__ void center_transform_t(const float* d, float x0,
+                                                   float y0, float z0,
+                                                   float* out) {
+  out[0] = ADD(ADD(d[0], MUL(MUL(2.0f, x0), d[6])), MUL(MUL(x0, x0), d[9]));
+  out[1] = ADD(ADD(d[1], MUL(MUL(2.0f, y0), d[7])), MUL(MUL(y0, y0), d[9]));
+  out[2] = ADD(ADD(d[2], MUL(MUL(2.0f, z0), d[8])), MUL(MUL(z0, z0), d[9]));
+  out[3] = ADD(ADD(ADD(d[3], MUL(y0, d[6])), MUL(x0, d[7])),
+               MUL(MUL(x0, y0), d[9]));
+  out[4] = ADD(ADD(ADD(d[4], MUL(z0, d[6])), MUL(x0, d[8])),
+               MUL(MUL(x0, z0), d[9]));
+  out[5] = ADD(ADD(ADD(d[5], MUL(z0, d[7])), MUL(y0, d[8])),
+               MUL(MUL(y0, z0), d[9]));
+  out[6] = ADD(d[6], MUL(x0, d[9]));
+  out[7] = ADD(d[7], MUL(y0, d[9]));
+  out[8] = ADD(d[8], MUL(z0, d[9]));
+  out[9] = d[9];
+}
+
+// First index in [lo, hi) whose key is >= k, for keys ascending in the range.
+template <typename KeyFn>
+__device__ __forceinline__ int first_at_least(int lo, int hi, int k, KeyFn key) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (key(mid) < k)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Exclusive scan of one value per thread across the whole block (blockDim.x
+// a multiple of 32, at most 1024). Returns the thread's exclusive prefix and
+// sets `total` to the block total. `warp_sums` holds 32 ints of shared
+// memory; every thread of the block must call it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
+                                                    int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    warp_sums[lane] = s;  // inclusive over warps
+  }
+  __syncthreads();
+  const int warp_prefix = warp > 0 ? warp_sums[warp - 1] : 0;
+  total = warp_sums[n_warps - 1];
+  __syncthreads();  // warp_sums is reused by the next call
+  return warp_prefix + incl - v;
+}

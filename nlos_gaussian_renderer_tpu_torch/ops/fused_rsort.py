@@ -1,0 +1,925 @@
+"""Group-sorted, work-list-scheduled field renderer ('pallas_rsort').
+
+Port of `nlos_gaussian_renderer_tpu/ops/fused_rsort.py`. One render of one
+scan point:
+
+  1. **Cull geometry** (`_cull_geometry`): each Gaussian's 3-sigma sphere
+     gives a camera distance d, a radius, and a footprint RECTANGLE of
+     angular tiles, packed into one rect word
+     [valid | th_lo | th_hi | ph_lo | ph_hi] (`_rect_bits`, the JAX bit
+     layout, so words compare equal across the packages).
+  2. **Layout** (`_layout_from_geometry`): a stable sort by (word, d) and
+     block-aligned pattern groups: every g_tile block is pattern-pure and
+     d-contiguous, so its radial footprint per tile is a tight interval.
+  3. **Wide gather** (`WidePadGather`): the differentiable forms|weights and
+     the geometry columns ride one row gather into the padded layout; the
+     backward is the inverse-permutation gather.
+  4. **Work lists**: kernel K1 (`cull_reduce`) reduces each (block, tile)
+     pair to an absolute active-bin range; kernel K2 (`build_work_lists`)
+     expands pairs over radial chunks into the block-major backward list and
+     the (tile, chunk, block)-sorted forward list.
+  5. **Field**: kernel K3 (`rsort_fwd`) sums each output tile's items;
+     kernel K4 (`rsort_bwd`) accumulates each Gaussian block's gradient rows
+     (`RSortField`, an autograd Function).
+
+Each kernel wrapper launches its CUDA kernel (`csrc/`) for CUDA tensors and
+raises on anything it cannot take; for CPU tensors it runs the plain PyTorch
+version defined beside it, which is also what `chip_smoke.py` holds the
+kernel against on the card. The quadratic form is evaluated in f32 in the
+tile-centred basis (`_center_transform`); the JAX kernels' bf16x3 split,
+their f32 scaled-floor word decode, the one-hot/stair matmuls and the packed
+work-list words existed for the TPU's MXU, Mosaic and SMEM and are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+from nlos_gaussian_renderer_tpu_torch.ops.fused import (
+    FDIM,
+    TileSpec,
+    tile_points_centered_direct_t,
+    untile_field_t,
+)
+
+_JAX_RSORT = "nlos_gaussian_renderer_tpu/ops/fused_rsort.py"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _rect_bits(n_tt: int, n_pt: int):
+    """Static bit widths (b_t, b_p, total) of the packed rectangle word,
+    MSB first: [valid(1) | th_lo(b_t) | th_hi(b_t) | ph_lo(b_p) | ph_hi(b_p)].
+    """
+    b_t = max(int(n_tt - 1).bit_length(), 1)
+    b_p = max(int(n_pt - 1).bit_length(), 1)
+    return b_t, b_p, 1 + 2 * b_t + 2 * b_p
+
+
+def _decode_words(words, n_tt: int, n_pt: int):
+    """int32 rect words -> (valid, th_lo, th_hi, ph_lo, ph_hi), integer ops."""
+    b_t, b_p, _ = _rect_bits(n_tt, n_pt)
+    v = words.to(torch.int32)
+    ph_hi = v & ((1 << b_p) - 1)
+    v = v >> b_p
+    ph_lo = v & ((1 << b_p) - 1)
+    v = v >> b_p
+    th_hi = v & ((1 << b_t) - 1)
+    v = v >> b_t
+    th_lo = v & ((1 << b_t) - 1)
+    return (v >> b_t) > 0, th_lo, th_hi, ph_lo, ph_hi
+
+
+def _member_of(words, t, n_tt: int, n_pt: int):
+    """Does each word's rectangle cover angular tile `t` (broadcast)?"""
+    valid, th_lo, th_hi, ph_lo, ph_hi = _decode_words(words, n_tt, n_pt)
+    tt, pt = t // n_pt, t % n_pt
+    return valid & (tt >= th_lo) & (tt <= th_hi) & (pt >= ph_lo) & (pt <= ph_hi)
+
+
+def decode_rect_members(words, n_tt: int, n_pt: int):
+    """(R,) int32 rect words -> (R, n_tt*n_pt) bool membership."""
+    t = torch.arange(n_tt * n_pt, device=words.device)
+    return _member_of(words.reshape(-1)[:, None], t[None, :], n_tt, n_pt)
+
+
+class RSortSpec(NamedTuple):
+    """Static configuration of the rsort renderer.
+
+    The fields match the JAX `RSortSpec`, so configs carry over. The port
+    computes in f32 and ignores `bwd_p_bf16`, `bwd_exp_bf16`, `fwd_p_bf16`
+    (bf16 variants of the TPU kernels), `d_max`/`dup_rows` (dsort, not
+    ported) and `ws_pallas` (the work lists always go through K1/K2). Its
+    kernels cover exactly each item's bin range [bl, bh], so `gate_bins`
+    only has to divide `t_chunk`; `mask_dead_blocks` is moot because the
+    backward output is zero-filled.
+    """
+
+    t_theta: int = 8
+    t_phi: int = 16
+    t_chunk: int = 8  # radial bins per chunk
+    g_tile: int = 256
+    w_max: int = 4096  # work-list capacity: (tile, chunk, block) triples
+    max_groups: int = 64  # pattern-group capacity (excess groups merge)
+    sigma_cull: float = 3.0
+    margin: float = 1.1
+    gate_bins: int = 4
+    bwd_p_bf16: bool = False
+    bwd_exp_bf16: bool = False
+    fwd_p_bf16: bool = False
+    d_max: int = 8
+    dup_rows: int = 0
+    mask_dead_blocks: bool = False
+    ws_pallas: bool = True
+
+
+class RSortTiles(NamedTuple):
+    """Cull result: the padded (pattern, d)-sorted layout plus work lists.
+
+    `fwd` and `bwd` hold the six int32 lists of each order as rows
+    (t, j, b, first, bl, bh); the `fwd_t` ... `bwd_bh` properties name them
+    as the JAX `RSortTiles` fields. Slots past `n_items` are zero.
+    """
+
+    full_perm: torch.Tensor  # (G_pad,) int64 padded slot -> original row
+    inv_perm: torch.Tensor  # (G,) int64 original row -> padded slot (G_pad = culled)
+    words: torch.Tensor  # (G_pad, 1) int32 packed rect words
+    counts: torch.Tensor  # (T_ang,) per-tile member counts (diagnostics)
+    fwd: torch.Tensor  # (6, W) int32, sorted by (tile, chunk, block)
+    bwd: torch.Tensor  # (6, W) int32, block-major
+    n_items: torch.Tensor  # (1,) int32 valid work items
+    tile_has_work: torch.Tensor  # (T_ang, n_ch) bool
+    blk_has_work: torch.Tensor  # (KB,) bool
+    n_groups: torch.Tensor  # () observed pattern groups (diagnostics)
+    overflowed: torch.Tensor  # () bool — work list truncated
+    # Padded [forms | weights | word | d-lo | d-hi | iota] rows when the
+    # cull was given `gw`; None otherwise.
+    table: Optional[torch.Tensor] = None
+
+    fwd_t = property(lambda self: self.fwd[0])
+    fwd_j = property(lambda self: self.fwd[1])
+    fwd_b = property(lambda self: self.fwd[2])
+    fwd_first = property(lambda self: self.fwd[3])
+    fwd_bl = property(lambda self: self.fwd[4])
+    fwd_bh = property(lambda self: self.fwd[5])
+    bwd_t = property(lambda self: self.bwd[0])
+    bwd_j = property(lambda self: self.bwd[1])
+    bwd_b = property(lambda self: self.bwd[2])
+    bwd_first = property(lambda self: self.bwd[3])
+    bwd_bl = property(lambda self: self.bwd[4])
+    bwd_bh = property(lambda self: self.bwd[5])
+
+
+class RSortLayout(NamedTuple):
+    """Sorted block layout of one cull."""
+
+    perm: torch.Tensor  # (G,) int64 sorted position -> original row
+    src: torch.Tensor  # (G_pad,) int64 padded slot -> sorted position; G = padding
+    inv_perm: torch.Tensor  # (G,) int64 original row -> padded slot (G_pad = culled)
+    n_groups: torch.Tensor  # () observed pattern groups
+
+
+def _padded_rows(g: int, spec: RSortSpec) -> int:
+    """Worst-case padded population: the row count plus one partial block
+    per pattern group."""
+    return _cdiv(g, spec.g_tile) * spec.g_tile + spec.max_groups * spec.g_tile
+
+
+def angular_footprints(means, scales, alive, cam, theta, phi, r,
+                       spec: RSortSpec, scaling_modifier: float = 1.0):
+    """Per-Gaussian (d, radius, m_th, m_ph, in_window) footprint geometry;
+    m_th (G, n_tt) / m_ph (G, n_pt) mark the tile rows the 3-sigma cull
+    sphere can touch (a contiguous interval per axis)."""
+    ns = theta.shape[0]
+    n_tt = _cdiv(ns, spec.t_theta)
+    n_pt = _cdiv(ns, spec.t_phi)
+    pi = torch.pi
+
+    sph = gmath.cartesian_to_spherical(means - cam[None, :])
+    d = torch.clamp(sph[:, 0], min=1e-9)
+    radius = spec.sigma_cull * scaling_modifier * torch.amax(scales, dim=-1) * spec.margin
+    radius = torch.where(alive > 0.5, radius, -1.0)
+
+    alpha = torch.arcsin(torch.clamp(radius / d, -1.0, 1.0))
+    th_lo, th_hi = sph[:, 1] - alpha, sph[:, 1] + alpha
+    sin_min = torch.clamp(
+        torch.minimum(
+            torch.sin(torch.clamp(th_lo, 0.0, pi)),
+            torch.sin(torch.clamp(th_hi, 0.0, pi)),
+        ),
+        min=1e-3,
+    )
+    phi_ratio = radius / (d * sin_min)
+    dphi = torch.arcsin(torch.clamp(phi_ratio, -1.0, 1.0))
+    ph_lo, ph_hi = sph[:, 2] - dphi, sph[:, 2] + dphi
+    # Degenerate footprints cover everything: the sphere contains the scan
+    # point, the cone wraps a pole, or the phi window crosses the +-pi seam.
+    full_th = (radius >= d) & (radius >= 0.0)
+    full_ph = (
+        full_th | (phi_ratio >= 1.0) | (ph_lo < -pi) | (ph_hi > pi)
+    ) & (radius >= 0.0)
+
+    def overlap(lo, hi, axis_vals, tile_size, n_tiles):
+        pad = n_tiles * tile_size - axis_vals.shape[0]
+        av = torch.cat([axis_vals, axis_vals[-1:].expand(pad)])
+        tiles = av.reshape(n_tiles, tile_size)
+        t_lo = torch.minimum(tiles[:, 0], tiles[:, -1])
+        t_hi = torch.maximum(tiles[:, 0], tiles[:, -1])
+        return (lo[:, None] <= t_hi[None, :]) & (hi[:, None] >= t_lo[None, :])
+
+    m_th = overlap(th_lo, th_hi, theta, spec.t_theta, n_tt) | full_th[:, None]
+    m_ph = overlap(ph_lo, ph_hi, phi, spec.t_phi, n_pt) | full_ph[:, None]
+    in_window = (d - radius <= r[-1]) & (d + radius >= r[0]) & (radius >= 0.0)
+    return d, radius, m_th, m_ph, in_window
+
+
+def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
+                   scaling_modifier: float = 1.0):
+    """(d, radius, word, valid_g, counts) for one camera; `word` is the
+    int32 rect word, 0 when the Gaussian is culled."""
+    ns = theta.shape[0]
+    n_tt = _cdiv(ns, spec.t_theta)
+    n_pt = _cdiv(ns, spec.t_phi)
+    g = means.shape[0]
+    d, radius, m_th, m_ph, in_window = angular_footprints(
+        means, scales, alive, cam, theta, phi, r, spec, scaling_modifier
+    )
+    mask = (m_th[:, :, None] & m_ph[:, None, :] & in_window[:, None, None])
+    counts = mask.reshape(g, n_tt * n_pt).sum(dim=0, dtype=torch.int32)
+
+    b_t, b_p, b_total = _rect_bits(n_tt, n_pt)
+    if b_total > 30:
+        raise ValueError(f"rect word needs {b_total} bits at {n_tt}x{n_pt} tiles")
+    idx_t = torch.arange(n_tt, dtype=torch.int32, device=means.device)
+    idx_p = torch.arange(n_pt, dtype=torch.int32, device=means.device)
+    th_lo_i = torch.where(m_th, idx_t[None, :], n_tt).amin(dim=1)
+    th_hi_i = torch.where(m_th, idx_t[None, :], -1).amax(dim=1)
+    ph_lo_i = torch.where(m_ph, idx_p[None, :], n_pt).amin(dim=1)
+    ph_hi_i = torch.where(m_ph, idx_p[None, :], -1).amax(dim=1)
+    valid_g = (th_hi_i >= th_lo_i) & (ph_hi_i >= ph_lo_i) & in_window
+    tl = torch.clamp(th_lo_i, 0, n_tt - 1)
+    th = torch.clamp(th_hi_i, 0, n_tt - 1)
+    pll = torch.clamp(ph_lo_i, 0, n_pt - 1)
+    phh = torch.clamp(ph_hi_i, 0, n_pt - 1)
+    word = (((((1 << b_t) | tl) << b_t | th) << b_p | pll) << b_p) | phh
+    word = torch.where(valid_g, word, 0).to(torch.int32)
+    return d, radius, word, valid_g, counts
+
+
+def _layout_from_geometry(d, word, valid_g, n_tt: int, n_pt: int,
+                          spec: RSortSpec, d_hi) -> RSortLayout:
+    """Stable (word, quantized d) sort + block-aligned group layout.
+
+    Integer gathers and `searchsorted` take the place of the JAX version's
+    one-hot and stair matmuls; the values are the same."""
+    g = d.shape[0]
+    dev = d.device
+    _, _, b_total = _rect_bits(n_tt, n_pt)
+    dq_bits = min(max(30 - (b_total + 1), 6), 16)
+    d_span = torch.clamp(d_hi, min=1e-6)
+    dq = torch.clamp(
+        (d / d_span * ((1 << dq_bits) - 1)).to(torch.int32), 0, (1 << dq_bits) - 1
+    )
+    key_c = torch.where(valid_g, word, 1 << b_total).to(torch.int32)
+    packed = key_c * (1 << dq_bits) + dq
+    packed_s, perm = torch.sort(packed, stable=True)
+    key_s = packed_s >> dq_bits
+    valid_s = key_s < (1 << b_total)
+    words_s = torch.where(valid_s, key_s, 0)
+
+    iota = torch.arange(g, device=dev)
+    false1 = torch.zeros(1, dtype=torch.bool, device=dev)
+    change = torch.cat([false1, words_s[1:] != words_s[:-1]])
+    raw_gid = torch.cumsum(change.to(torch.int64), dim=0)
+    n_groups = torch.amax(torch.where(valid_s, raw_gid, -1)) + 1
+    gid = torch.clamp(raw_gid, max=spec.max_groups - 1)
+    eff_change = torch.cat([false1, gid[1:] != gid[:-1]])
+    seg_start = torch.cummax(torch.where(eff_change, iota, 0), dim=0).values
+    pos = iota - seg_start
+    n_valid = valid_s.sum()
+    group_ids = torch.arange(spec.max_groups, device=dev)
+    right = torch.clamp(torch.searchsorted(gid, group_ids, right=True), max=n_valid)
+    left = torch.clamp(torch.searchsorted(gid, group_ids), max=n_valid)
+    cnt_g = right - left
+    padded_g = (cnt_g + spec.g_tile - 1) // spec.g_tile * spec.g_tile
+    start_g = torch.cumsum(padded_g, dim=0) - padded_g
+
+    g_pad = _padded_rows(g, spec)
+    dest = torch.where(valid_s, start_g[gid] + pos, g_pad)
+    # Padded slot -> sorted row: each padded block belongs to the last group
+    # whose start is at or before it (groups are g_tile-padded).
+    kb = g_pad // spec.g_tile
+    blk_start = torch.arange(kb, device=dev) * spec.g_tile
+    k_of_b = torch.searchsorted(start_g, blk_start, right=True) - 1
+    off_bt = (
+        blk_start[:, None] + torch.arange(spec.g_tile, device=dev)[None, :]
+        - start_g[k_of_b][:, None]
+    )
+    src_raw = left[k_of_b][:, None] + off_bt
+    src = torch.where(off_bt < cnt_g[k_of_b][:, None], src_raw, g).reshape(g_pad)
+    inv_perm = torch.empty_like(perm)
+    inv_perm[perm] = dest
+    return RSortLayout(perm=perm, src=src, inv_perm=inv_perm, n_groups=n_groups)
+
+
+class WidePadGather(torch.autograd.Function):
+    """Differentiable columns `gw` + constant geometry columns `geom` through
+    the sort permutation then the padded block map, as one row gather pair.
+    Padding slots (src == G) read a zero row. The backward is the inverse
+    permutation gather: original row j gets `grad[inv_perm[j], :n_diff]`,
+    culled rows (inv_perm >= G_pad) get zero."""
+
+    @staticmethod
+    def forward(ctx, gw, geom, perm, src, inv_perm):
+        g = gw.shape[0]
+        full = torch.cat([gw, geom], dim=1)
+        full = torch.cat([full, full.new_zeros(1, full.shape[1])], dim=0)
+        perm2 = torch.cat([perm, perm.new_full((1,), g)])
+        ctx.save_for_backward(inv_perm)
+        ctx.n_diff = gw.shape[1]
+        return full[perm2][src]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv_perm,) = ctx.saved_tensors
+        g_pad = grad.shape[0]
+        gz = torch.cat([grad[:, :ctx.n_diff], grad.new_zeros(1, ctx.n_diff)])
+        return gz[torch.clamp(inv_perm, max=g_pad)], None, None, None, None
+
+
+# --- kernels -----------------------------------------------------------------
+
+
+class _Kernel:
+    """A CUDA kernel of this module: where its source lives, which TPU
+    kernel it replaces, and how many times it was launched."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, *args):
+        fn = getattr(cuda_build.library(), self.name)
+        stream = torch.cuda.current_stream().cuda_stream
+        self.launches += 1
+        err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA error {err} ({cuda_build.error_string(err)})"
+            )
+
+
+KERNELS = {
+    k.name: k for k in (
+        _Kernel("cull_reduce", "nlos_gaussian_renderer_tpu_torch/csrc/cull_reduce.cu",
+                f"{_JAX_RSORT}:630"),
+        _Kernel("build_work_lists",
+                "nlos_gaussian_renderer_tpu_torch/csrc/build_work_lists.cu",
+                f"{_JAX_RSORT}:522"),
+        _Kernel("rsort_fwd", "nlos_gaussian_renderer_tpu_torch/csrc/rsort_fwd.cu",
+                f"{_JAX_RSORT}:1243"),
+        _Kernel("rsort_bwd", "nlos_gaussian_renderer_tpu_torch/csrc/rsort_bwd.cu",
+                f"{_JAX_RSORT}:1304"),
+    )
+}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape=None):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _on_cpu(*ts) -> bool:
+    """True when every tensor is on the CPU; CUDA tensors go to the kernel
+    (any other device is refused there)."""
+    return all(t.device.type == "cpu" for t in ts)
+
+
+# K1 ---------------------------------------------------------------------------
+
+
+def cull_reduce(words, lo, hi, r, n_tt: int, n_pt: int, total_bins: int):
+    """Per-(block, tile) absolute active-bin ranges.
+
+    words (KB, g_tile) int32 rect words; lo/hi (KB, g_tile) f32 radial
+    interval ends d -+ radius; r (num_r,) f32 radii. Returns (abs_lo, abs_hi)
+    (KB, T_ang) int32: bin a is active for the pair iff the union of its
+    members' intervals, widened by half a bin and 1e-4 bin, holds r0 + a*dr.
+    Empty pairs and pairs outside the bins encode (total_bins, -1).
+    """
+    if _on_cpu(words, lo, hi, r):
+        return _cull_reduce_plain(words, lo, hi, r, n_tt, n_pt, total_bins)
+    kb, gt = words.shape
+    t_ang = n_tt * n_pt
+    b_t, b_p, _ = _rect_bits(n_tt, n_pt)
+    _check(words, "words", torch.int32)
+    _check(lo, "lo", torch.float32, (kb, gt))
+    _check(hi, "hi", torch.float32, (kb, gt))
+    _check(r, "r", torch.float32)
+    if r.numel() < 2:
+        raise ValueError("need at least two radial bins")
+    abs_lo = torch.empty((kb, t_ang), dtype=torch.int32, device=words.device)
+    abs_hi = torch.empty_like(abs_lo)
+    KERNELS["cull_reduce"].launch(
+        _ptr(words), _ptr(lo), _ptr(hi), _ptr(r), _ptr(abs_lo), _ptr(abs_hi),
+        kb, gt, n_tt, n_pt, b_t, b_p, total_bins,
+    )
+    return abs_lo, abs_hi
+
+
+def _cull_reduce_plain(words, lo, hi, r, n_tt, n_pt, total_bins):
+    kb, gt = words.shape
+    memb = decode_rect_members(words.reshape(-1), n_tt, n_pt).reshape(kb, gt, -1)
+    inf = torch.tensor(float("inf"), dtype=lo.dtype, device=lo.device)
+    blk_lo = torch.where(memb, lo[:, :, None], inf).amin(dim=1)
+    blk_hi = torch.where(memb, hi[:, :, None], -inf).amax(dim=1)
+    r0 = r[0]
+    dr = r[1] - r[0]
+    raw_lo = torch.ceil((blk_lo - r0) / dr - 0.5 - 1e-4)
+    raw_hi = torch.floor((blk_hi - r0) / dr + 0.5 + 1e-4)
+    valid = (blk_lo <= blk_hi) & (raw_hi >= 0) & (raw_lo <= total_bins - 1)
+    abs_lo = torch.where(
+        valid, torch.clamp(raw_lo, 0, total_bins - 1).to(torch.int32), total_bins
+    )
+    abs_hi = torch.where(
+        valid, torch.clamp(raw_hi, 0, total_bins - 1).to(torch.int32), -1
+    )
+    return abs_lo, abs_hi
+
+
+# K2 ---------------------------------------------------------------------------
+
+
+def build_work_lists(abs_lo, abs_hi, n_ch: int, t_chunk: int, w: int):
+    """Expand (block, tile) bin ranges into the two work lists.
+
+    abs_lo/abs_hi (KB, T_ang) int32 from `cull_reduce`. Each non-empty pair
+    expands to one item per radial chunk its range touches. Returns
+    (bwd (6, W), fwd (6, W), n_raw (1,), tile_w (T_ang*n_ch,), blk_w (KB,)),
+    all int32: the backward list in pair (block-major) order, the forward
+    list stably sorted by (tile, chunk, block), the UNCLIPPED item count,
+    and has-work flags of the WRITTEN items. Only the first `w` items are
+    written (overflow = n_raw > w); slots past them are zero.
+    """
+    if _on_cpu(abs_lo, abs_hi):
+        return _build_work_lists_plain(abs_lo, abs_hi, n_ch, t_chunk, w)
+    kb, t_ang = abs_lo.shape
+    _check(abs_lo, "abs_lo", torch.int32)
+    _check(abs_hi, "abs_hi", torch.int32, (kb, t_ang))
+    dev = abs_lo.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    bwd = torch.zeros((6, w), **i32)
+    fwd = torch.zeros((6, w), **i32)
+    n_raw = torch.zeros((1,), **i32)
+    tile_w = torch.zeros((t_ang * n_ch,), **i32)
+    blk_w = torch.zeros((kb,), **i32)
+    # Scratch: per-pair chunk offsets, then the (bucket, block) occupancy.
+    scratch = torch.zeros((kb * t_ang + t_ang * n_ch * kb,), **i32)
+    KERNELS["build_work_lists"].launch(
+        _ptr(abs_lo), _ptr(abs_hi), kb, t_ang, n_ch, t_chunk, w,
+        _ptr(bwd), _ptr(fwd), _ptr(n_raw), _ptr(tile_w), _ptr(blk_w),
+        _ptr(scratch),
+    )
+    return bwd, fwd, n_raw, tile_w, blk_w
+
+
+def _build_work_lists_plain(abs_lo, abs_hi, n_ch, t_chunk, w):
+    """The JAX XLA-fallback chain (`rsort_cull`'s prefix-sum expansion and
+    argsort), with the kernel's has-work and zero-tail semantics."""
+    kb, t_ang = abs_lo.shape
+    dev = abs_lo.device
+    lo = abs_lo.long().reshape(-1)
+    hi = abs_hi.long().reshape(-1)
+    valid = hi >= 0
+    j_lo = torch.where(valid, lo // t_chunk, n_ch)
+    j_hi = torch.where(valid, hi // t_chunk, -1)
+    nch = torch.clamp(j_hi - j_lo + 1, min=0)
+    n_raw = nch.sum()
+    off = torch.cumsum(nch, dim=0) - nch
+    pair_ids = torch.arange(nch.shape[0], device=dev)
+    slot_of = torch.clamp(torch.where(nch > 0, off, w), max=w)
+    pair_at = torch.zeros(w + 1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, slot_of, pair_ids, reduce="amax"
+    )[:w]
+    pair_slot = torch.cummax(pair_at, dim=0).values
+    slots = torch.arange(w, device=dev)
+    live = slots < n_raw
+    bwd_b = pair_slot // t_ang
+    bwd_t = pair_slot % t_ang
+    bwd_j = torch.clamp(j_lo[pair_slot] + (slots - off[pair_slot]), 0, n_ch - 1)
+    one = torch.ones(1, dtype=torch.int64, device=dev)
+    bwd_first = torch.cat([one, (bwd_b[1:] != bwd_b[:-1]).long()])
+    bwd_bl = torch.clamp(lo[pair_slot] - bwd_j * t_chunk, 0, t_chunk - 1)
+    bwd_bh = torch.clamp(hi[pair_slot] - bwd_j * t_chunk, 0, t_chunk - 1)
+    bwd = torch.stack([bwd_t, bwd_j, bwd_b, bwd_first, bwd_bl, bwd_bh])
+
+    big = torch.iinfo(torch.int64).max
+    fkey = torch.where(live, (bwd_t * n_ch + bwd_j) * kb + bwd_b, big)
+    f_ord = torch.sort(fkey, stable=True).indices
+    fwd = bwd[:, f_ord].clone()
+    out_f = fwd[0] * n_ch + fwd[1]
+    fwd[3] = torch.cat([one, (out_f[1:] != out_f[:-1]).long()])
+
+    q = (bwd_t * n_ch + bwd_j)
+    lv = live.long()
+    tile_w = torch.zeros(t_ang * n_ch, dtype=torch.int64, device=dev).scatter_reduce(
+        0, q, lv, reduce="amax"
+    )
+    blk_w = torch.zeros(kb, dtype=torch.int64, device=dev).scatter_reduce(
+        0, bwd_b, lv, reduce="amax"
+    )
+    n_items = torch.clamp(n_raw, max=w)
+    keep = slots < n_items
+    i32 = torch.int32
+    return (
+        (bwd * keep).to(i32), (fwd * keep).to(i32),
+        n_raw.reshape(1).to(i32), tile_w.to(i32), blk_w.to(i32),
+    )
+
+
+# K3 / K4 ----------------------------------------------------------------------
+
+
+class RSortGeometry(NamedTuple):
+    """Static shape facts the field kernels need."""
+
+    n_tt: int
+    n_pt: int
+    n_ch: int
+    t_chunk: int
+    g_tile: int
+    s_ang: int
+
+    @property
+    def t_ang(self) -> int:
+        return self.n_tt * self.n_pt
+
+
+def _center_transform(gf, x0, y0, z0):
+    """(..., 10) original-basis forms -> forms centred at (x0, y0, z0):
+    A' = A, b' = b + 2 A x0, c' = c + b.x0 + x0^T A x0 (packed layout of
+    `gmath.gaussian_quadratic_form`)."""
+    g0, g1, g2, g3, g4, g5, g6, g7, g8, g9 = gf.unbind(-1)
+    b0 = g6 + 2.0 * g0 * x0 + g3 * y0 + g4 * z0
+    b1 = g7 + 2.0 * g1 * y0 + g3 * x0 + g5 * z0
+    b2 = g8 + 2.0 * g2 * z0 + g4 * x0 + g5 * y0
+    c = (
+        g9
+        + g6 * x0 + g7 * y0 + g8 * z0
+        + g0 * x0 * x0 + g1 * y0 * y0 + g2 * z0 * z0
+        + g3 * x0 * y0 + g4 * x0 * z0 + g5 * y0 * z0
+    )
+    return torch.stack([g0, g1, g2, g3, g4, g5, b0, b1, b2, c], dim=-1)
+
+
+def _center_transform_t(dgp, x0, y0, z0):
+    """Transpose of `_center_transform`: centred-basis cotangent ->
+    original-basis cotangent."""
+    d0, d1, d2, d3, d4, d5, d6, d7, d8, d9 = dgp.unbind(-1)
+    return torch.stack(
+        [
+            d0 + 2.0 * x0 * d6 + x0 * x0 * d9,
+            d1 + 2.0 * y0 * d7 + y0 * y0 * d9,
+            d2 + 2.0 * z0 * d8 + z0 * z0 * d9,
+            d3 + y0 * d6 + x0 * d7 + x0 * y0 * d9,
+            d4 + z0 * d6 + x0 * d8 + x0 * z0 * d9,
+            d5 + z0 * d7 + y0 * d8 + y0 * z0 * d9,
+            d6 + x0 * d9,
+            d7 + y0 * d9,
+            d8 + z0 * d9,
+            d9,
+        ],
+        dim=-1,
+    )
+
+
+def _field_args(xfeat, centers, table, words, lists, n_items, geo, c):
+    t_tot, fdim, s = xfeat.shape
+    if fdim != FDIM or s != geo.s_ang * geo.t_chunk:
+        raise ValueError(f"xfeat shape {tuple(xfeat.shape)} does not match {geo}")
+    if t_tot != geo.t_ang * geo.n_ch:
+        raise ValueError(f"{t_tot} tiles, expected {geo.t_ang * geo.n_ch}")
+    rows, f = table.shape
+    if rows % geo.g_tile or words.shape[0] != rows:
+        raise ValueError("table/words rows must be whole g_tile blocks")
+    if not 1 <= c <= 2 or f < FDIM + c:
+        raise ValueError(f"channel count {c} with table width {f}")
+    _check(xfeat, "xfeat", torch.float32)
+    _check(centers, "centers", torch.float32, (t_tot, 3))
+    _check(table, "table", torch.float32)
+    _check(words, "words", torch.int32)
+    _check(lists, "work list", torch.int32)
+    _check(n_items, "n_items", torch.int32, (1,))
+    b_t, b_p, _ = _rect_bits(geo.n_tt, geo.n_pt)
+    return (t_tot, s, geo.s_ang, geo.t_ang, geo.n_ch, geo.g_tile, f, c,
+            lists.shape[1], geo.n_pt, b_t, b_p)
+
+
+def rsort_fwd(xfeat, centers, table, words, fwd, n_items, geo: RSortGeometry,
+              c: int):
+    """Forward field over the forward work list: (T_tot, C, S) f32 with
+
+        out[tile, c, s] = sum over the tile's items, over bins [bl, bh],
+                          of sum_k w_c[k] * member[k] * exp(min(-q'_k(x_s)/2, 0))
+
+    where q' is the block row's form centred at the tile centre. xfeat
+    (T_tot, 10, S) centred monomials; table (KB*g_tile, F) rows
+    [forms | weights (c) | ...]; words (KB*g_tile,) int32; fwd (6, W).
+    Tiles with no items are zero. The TPU kernel's gate ladder covers up to
+    gate_bins - 1 bins beyond [bl, bh]; their terms are below the cull
+    cutoff, so covering exactly [bl, bh] is the same field.
+    """
+    if _on_cpu(xfeat, centers, table, words, fwd, n_items):
+        return _rsort_fwd_plain(xfeat, centers, table, words, fwd, n_items, geo, c)
+    args = _field_args(xfeat, centers, table, words, fwd, n_items, geo, c)
+    out = torch.zeros((xfeat.shape[0], c, xfeat.shape[2]), dtype=torch.float32,
+                      device=xfeat.device)
+    KERNELS["rsort_fwd"].launch(
+        _ptr(xfeat), _ptr(centers), _ptr(table), _ptr(words), _ptr(fwd),
+        _ptr(n_items), _ptr(out), *args,
+    )
+    return out
+
+
+def rsort_bwd(xfeat, centers, table, words, bwd, n_items, go, geo: RSortGeometry,
+              c: int):
+    """Cotangent of `rsort_fwd` with respect to the table: (KB*g_tile, F)
+    f32, nonzero only in the form and weight columns of member rows.
+
+    Per item of the block-major backward list, Z_c = p (go_c * x)^T over the
+    item's bins; dg' = -1/2 sum_c w_c Z_c mapped back by
+    `_center_transform_t`, and dw_c = Z_c[:, 9], both masked by membership.
+    Like the TPU kernel it drops the m > 0 clamp mask on the cotangent.
+    """
+    if _on_cpu(xfeat, centers, table, words, bwd, n_items, go):
+        return _rsort_bwd_plain(xfeat, centers, table, words, bwd, n_items, go, geo, c)
+    args = _field_args(xfeat, centers, table, words, bwd, n_items, geo, c)
+    _check(go, "go", torch.float32, (xfeat.shape[0], c, xfeat.shape[2]))
+    dtable = torch.zeros_like(table)
+    kb = table.shape[0] // geo.g_tile
+    KERNELS["rsort_bwd"].launch(
+        _ptr(xfeat), _ptr(centers), _ptr(table), _ptr(words), _ptr(bwd),
+        _ptr(n_items), _ptr(go), _ptr(dtable), *args, kb,
+    )
+    return dtable
+
+
+def _quad(g, x):
+    """(nb, gt, 10) forms . (nb, 10, S) monomials -> (nb, gt, S), summed in
+    index order with one rounding per operation — the order the kernels
+    spell out, so kernel and plain version agree to the last bit before the
+    exp. (The tile-centred form still cancels terms ~1e4 times its value at
+    a 1 m radial tile; a matmul's summation order alone moves the field by
+    ~5e-4 relative.)"""
+    q = g[..., 0, None] * x[:, None, 0, :]
+    for f in range(1, FDIM):
+        q = q + g[..., f, None] * x[:, None, f, :]
+    return q
+
+
+_PLAIN_BATCH_ELEMENTS = 1 << 25  # per (batch, g_tile, S) temporary: 128 MiB
+
+
+def _item_batches(n: int, g_tile: int, s: int):
+    """Item batches whose (batch, g_tile, S) temporaries stay within
+    `_PLAIN_BATCH_ELEMENTS` elements."""
+    nb = max(1, _PLAIN_BATCH_ELEMENTS // max(g_tile * s, 1))
+    return [(i, min(i + nb, n)) for i in range(0, n, nb)]
+
+
+def _items(xfeat, centers, table, words, lists, i0, i1, geo, c):
+    """Gathered operands of work items [i0, i1): tile ids, centres, centred
+    forms, raw weights, membership, monomial slabs and bin gates."""
+    gt = geo.g_tile
+    t, j, b = lists[0, i0:i1].long(), lists[1, i0:i1].long(), lists[2, i0:i1].long()
+    bl, bh = lists[4, i0:i1], lists[5, i0:i1]
+    tile = j * geo.t_ang + t
+    cx = centers[tile]
+    tab = table.reshape(-1, gt, table.shape[1])[b]  # (nb, gt, F)
+    x0, y0, z0 = (cx[:, i, None] for i in range(3))
+    g = _center_transform(tab[..., :FDIM], x0, y0, z0)
+    memb = _member_of(words.reshape(-1, gt)[b], t[:, None], geo.n_tt, geo.n_pt)
+    bins = torch.arange(xfeat.shape[2], device=xfeat.device) // geo.s_ang
+    gate = (bins[None, :] >= bl[:, None]) & (bins[None, :] <= bh[:, None])
+    return tile, (x0, y0, z0), g, tab[..., FDIM:FDIM + c], memb, xfeat[tile], gate, b
+
+
+def _rsort_fwd_plain(xfeat, centers, table, words, fwd, n_items, geo, c):
+    out = torch.zeros((xfeat.shape[0], c, xfeat.shape[2]), dtype=xfeat.dtype,
+                      device=xfeat.device)
+    n = int(n_items[0])
+    for i0, i1 in _item_batches(n, geo.g_tile, xfeat.shape[2]):
+        tile, _, g, w, memb, x, gate, _ = _items(
+            xfeat, centers, table, words, fwd, i0, i1, geo, c
+        )
+        p = torch.exp(torch.clamp(-0.5 * _quad(g, x), max=0.0)) * gate[:, None, :]
+        wm = (w * memb[..., None]).transpose(1, 2)  # (nb, C, gt)
+        out.index_add_(0, tile, wm @ p)
+    return out
+
+
+def _rsort_bwd_plain(xfeat, centers, table, words, bwd, n_items, go, geo, c):
+    gt = geo.g_tile
+    dtable = torch.zeros_like(table)
+    n = int(n_items[0])
+    ar = torch.arange(gt, device=table.device)
+    for i0, i1 in _item_batches(n, gt, xfeat.shape[2]):
+        tile, (x0, y0, z0), g, w, memb, x, gate, b = _items(
+            xfeat, centers, table, words, bwd, i0, i1, geo, c
+        )
+        p = torch.exp(torch.clamp(-0.5 * _quad(g, x), max=0.0)) * gate[:, None, :]
+        gos = go[tile]
+        zs = [p @ (gos[:, ci:ci + 1, :] * x).transpose(1, 2) for ci in range(c)]
+        dgp = sum(-0.5 * w[..., ci:ci + 1] * zs[ci] for ci in range(c))
+        mf = memb[..., None].to(table.dtype)
+        dg = _center_transform_t(dgp, x0, y0, z0) * mf
+        dw = torch.stack([z[..., FDIM - 1] for z in zs], dim=-1) * mf
+        rows = (b[:, None] * gt + ar[None, :]).reshape(-1)
+        upd = torch.zeros((rows.shape[0], table.shape[1]), dtype=table.dtype,
+                          device=table.device)
+        upd[:, :FDIM] = dg.reshape(-1, FDIM)
+        upd[:, FDIM:FDIM + c] = dw.reshape(-1, c)
+        dtable.index_add_(0, rows, upd)
+    return dtable
+
+
+class RSortField(torch.autograd.Function):
+    """Work-list-sparse field (T_tot, C, S) of the padded table, with the
+    K4 backward. Only `table` is differentiable."""
+
+    @staticmethod
+    def forward(ctx, table, xfeat, centers, words, fwd, bwd, n_items, geo, c):
+        ctx.save_for_backward(xfeat, centers, table, words, bwd, n_items)
+        ctx.geo, ctx.c = geo, c
+        return rsort_fwd(xfeat, centers, table, words, fwd, n_items, geo, c)
+
+    @staticmethod
+    def backward(ctx, go):
+        xfeat, centers, table, words, bwd, n_items = ctx.saved_tensors
+        dtable = rsort_bwd(xfeat, centers, table, words, bwd, n_items,
+                           go.contiguous(), ctx.geo, ctx.c)
+        return (dtable,) + (None,) * 8
+
+
+# --- cull + schedule ---------------------------------------------------------
+
+
+def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
+                   spec: RSortSpec, gw=None) -> RSortTiles:
+    """Layout, wide gather and work lists from per-Gaussian cull geometry
+    (the half of `rsort_cull` after `_cull_geometry`)."""
+    g = d.shape[0]
+    n_ch = _cdiv(r.shape[0], spec.t_chunk)
+    t_ang = n_tt * n_pt
+    g_pad = _padded_rows(g, spec)
+    kb = g_pad // spec.g_tile
+    layout = _layout_from_geometry(d, word, valid_g, n_tt, n_pt, spec, d_hi=r[-1])
+
+    geom = torch.stack(
+        [
+            word.to(torch.float32),
+            d - radius,
+            d + radius,
+            torch.arange(g, dtype=torch.float32, device=d.device),
+        ],
+        dim=1,
+    )
+    n_gw = 0 if gw is None else gw.shape[1]
+    per_row = WidePadGather.apply(
+        geom.new_zeros(g, 0) if gw is None else gw, geom, layout.perm,
+        layout.src, layout.inv_perm,
+    )
+    table = None if gw is None else per_row
+    geom_r = per_row[:, n_gw:].detach()
+    full_perm = geom_r[:, 3].to(torch.int64)
+    words_pad = geom_r[:, 0].to(torch.int32)
+
+    abs_lo, abs_hi = cull_reduce(
+        words_pad.reshape(kb, spec.g_tile),
+        geom_r[:, 1].reshape(kb, spec.g_tile).contiguous(),
+        geom_r[:, 2].reshape(kb, spec.g_tile).contiguous(),
+        r, n_tt, n_pt, n_ch * spec.t_chunk,
+    )
+    bwd, fwd, n_raw, tile_w, blk_w = build_work_lists(
+        abs_lo, abs_hi, n_ch, spec.t_chunk, spec.w_max
+    )
+    return RSortTiles(
+        full_perm=full_perm,
+        inv_perm=layout.inv_perm,
+        words=words_pad[:, None],
+        counts=counts,
+        fwd=fwd,
+        bwd=bwd,
+        n_items=torch.clamp(n_raw, max=spec.w_max),
+        tile_has_work=tile_w.reshape(t_ang, n_ch) > 0,
+        blk_has_work=blk_w > 0,
+        n_groups=layout.n_groups,
+        overflowed=n_raw[0] > spec.w_max,
+        table=table,
+    )
+
+
+def rsort_cull(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
+               scaling_modifier: float = 1.0, gw=None) -> RSortTiles:
+    """Cull + schedule for one scan point.
+
+    With `gw` ((G, FDIM + C) differentiable forms|weights), `tiles.table`
+    holds the padded [forms | weights | word | d-lo | d-hi | iota] rows the
+    field kernels read. The cull geometry itself carries no gradient.
+    Without a frozen layout every valid Gaussian has a slot, so the JAX
+    version's missed-slot overflow channel never fires and is not ported.
+    """
+    ns = theta.shape[0]
+    with torch.no_grad():
+        d, radius, word, valid_g, counts = _cull_geometry(
+            means.detach(), scales.detach(), alive, cam, theta, phi, r, spec,
+            scaling_modifier,
+        )
+    return rsort_schedule(
+        d, radius, word, valid_g, counts, r,
+        _cdiv(ns, spec.t_theta), _cdiv(ns, spec.t_phi), spec, gw,
+    )
+
+
+def rsort_gaussian_field(gfeat, channel_weights, tiles: RSortTiles,
+                         spec: RSortSpec, grid, cam):
+    """Work-list-sparse field (num_r, ns, ns, C) + overflow flag.
+
+    `tiles` must come from `rsort_cull(..., gw=cat([gfeat, channel_weights]))`:
+    the field reads the table the cull gathered, not `gfeat` itself."""
+    num_r, ns = grid.r.shape[0], grid.theta.shape[0]
+    n_tt = _cdiv(ns, spec.t_theta)
+    n_pt = _cdiv(ns, spec.t_phi)
+    n_ch = _cdiv(num_r, spec.t_chunk)
+    c = channel_weights.shape[1]
+    table = tiles.table
+    if table is None:
+        raise ValueError("rsort_gaussian_field needs tiles culled with gw=...")
+    n_extra = table.shape[1] - gfeat.shape[1] - c - 1
+    if n_extra != 3:
+        raise ValueError(
+            f"tiles.table width {table.shape[1]} does not match "
+            f"[{FDIM} forms | {c} weights | word | 3 geometry]"
+        )
+    if spec.t_chunk % spec.gate_bins:
+        raise ValueError(
+            f"gate_bins={spec.gate_bins} must divide t_chunk={spec.t_chunk}"
+        )
+    tp_spec = TileSpec(t_theta=spec.t_theta, t_phi=spec.t_phi, t_r=spec.t_chunk)
+    with torch.no_grad():
+        xfeat, centers = tile_points_centered_direct_t(
+            grid.theta, grid.phi, grid.r, cam, tp_spec, n_tt, n_pt, n_ch
+        )
+    geo = RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,
+                        spec.t_theta * spec.t_phi)
+    out = RSortField.apply(
+        table, xfeat.contiguous(), centers.contiguous(),
+        tiles.words.reshape(-1).contiguous(), tiles.fwd, tiles.bwd,
+        tiles.n_items, geo, c,
+    )
+    field = untile_field_t(out, ns, num_r, tp_spec, n_tt, n_pt, n_ch)
+    return field, tiles.overflowed
+
+
+@torch.no_grad()
+def tune_rsort_spec(scene, camera_positions, box_points,
+                    num_sampling_points: int, start: int, end: int, c: float,
+                    delta_t: float, base: RSortSpec = RSortSpec(),
+                    headroom: float = 1.25,
+                    scaling_modifier: float = 1.0) -> RSortSpec:
+    """Fit `w_max` / `max_groups` to a scene by culling a few representative
+    cameras with generous probe capacities."""
+    from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
+
+    g = scene.capacity
+    t_ang = _cdiv(num_sampling_points, base.t_theta) * _cdiv(
+        num_sampling_points, base.t_phi
+    )
+    n_ch = _cdiv(end - start, base.t_chunk)
+    probe_groups = min(max(4 * base.max_groups, 64), 512)
+    kb_probe = _padded_rows(g, base._replace(max_groups=probe_groups)) // base.g_tile
+    probe = base._replace(
+        max_groups=probe_groups, w_max=max(kb_probe * t_ang * n_ch, 1)
+    )
+    dev = scene.means.device
+    cams = torch.as_tensor(camera_positions, dtype=torch.float32, device=dev)
+    max_items, max_groups_obs = 1, 1
+    for cam in cams.reshape(-1, 3):
+        grid = shell_grid(cam, box_points, num_sampling_points, start, end, c,
+                          delta_t)
+        t = rsort_cull(scene.means, scene.scales, scene.alive, cam,
+                       grid.theta, grid.phi, grid.r, probe, scaling_modifier)
+        max_items = max(max_items, int(t.n_items[0]))
+        max_groups_obs = max(max_groups_obs, int(t.n_groups))
+    return base._replace(
+        w_max=int(max_items * headroom) + 8,
+        max_groups=min(max_groups_obs + max(4, max_groups_obs // 4), probe_groups),
+    )

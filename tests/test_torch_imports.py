@@ -1,0 +1,43 @@
+"""The PyTorch port never imports JAX or the JAX package.
+
+A static check of every module's import statements: a runtime look at
+`sys.modules` would be fooled by an interpreter that preloads jax."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "nlos_gaussian_renderer_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "nlos_gaussian_renderer_tpu")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_has_the_mirrored_modules():
+    for rel in ("configs/default.py", "models/scene.py", "ops/math.py",
+                "ops/sampling.py", "ops/schedule.py", "ops/render.py",
+                "ops/fused.py", "ops/fused_rsort.py", "train.py",
+                "data/synthetic.py"):
+        assert (PORT / rel).is_file(), rel
+    kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
+    assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
+                       "rsort_bwd.cu"}

@@ -1,0 +1,170 @@
+"""The four CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: each test skips (from its fixture) where no GPU is present.
+On the card: `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
+(the suite conftest imports jax, which the card's machine does not have).
+Shapes are the small ones of tests/test_torch_rsort.py, one and two
+channels, one and several radial chunks, and an overflowed work list.
+Tolerances: K1/K2 outputs exactly equal; K3 rel_l2 <= 1e-5; K4 rel_l2 <=
+1e-4 (the kernels evaluate the form in the plain versions' operation order;
+only the order of the sums over Gaussians and samples differs)."""
+
+import numpy as np
+import pytest
+import torch
+
+from nlos_gaussian_renderer_tpu_torch.models.scene import scene_from_numpy
+from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
+from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+from nlos_gaussian_renderer_tpu_torch.ops.fused import (
+    TileSpec,
+    tile_points_centered_direct_t,
+)
+from nlos_gaussian_renderer_tpu_torch.ops.render import (
+    RenderSettings,
+    channel_weights,
+    mse_loss,
+    render_transient,
+)
+from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
+
+pytestmark = pytest.mark.cuda
+VOL = np.array([0.0, 1.0, 0.0], np.float32)
+C, DT = 1.0, 0.01
+SPEC = fr.RSortSpec(t_theta=4, t_phi=8, t_chunk=8, g_tile=32, w_max=256, max_groups=16)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def scene_np(n=64, seed=21):
+    rng = np.random.default_rng(seed)
+    return {
+        "means": (VOL + rng.uniform(-0.25, 0.25, size=(n, 3))).astype(np.float32),
+        "log_scales": rng.uniform(-4.0, -2.5, (n, 3)).astype(np.float32),
+        "quats": rng.normal(size=(n, 4)).astype(np.float32),
+        "logit_opacities": rng.normal(size=(n, 1)).astype(np.float32),
+        "sh_dc": rng.normal(size=(n, 1)).astype(np.float32),
+        "sh_rest": (0.1 * rng.normal(size=(n, 3))).astype(np.float32),
+        "alive": (rng.random(n) > 0.1).astype(np.float32),
+    }
+
+
+def _inputs(dev, spec, occ=False, ns=8, start=60, end=140):
+    """Kernel operands of one cull on `dev`."""
+    scene = scene_from_numpy(scene_np(), dev)
+    cam = torch.tensor([0.05, 0.0, -0.1], device=dev)
+    box = gmath.volume_box_points(VOL, 0.6, device=dev)
+    grid = shell_grid(cam, box, ns, start, end, C, DT)
+    st = RenderSettings(num_sampling_points=ns, start=start, end=end, occlusion=occ)
+    with torch.no_grad():
+        w = channel_weights(scene, cam, 1, st)
+        gfeat = scene.quadratic_form()
+        tiles = fr.rsort_cull(scene.means, scene.scales, scene.alive, cam, grid.theta,
+                              grid.phi, grid.r, spec, gw=torch.cat([gfeat, w], 1))
+    n_tt, n_pt = -(-ns // spec.t_theta), -(-ns // spec.t_phi)
+    n_ch = -(-(end - start) // spec.t_chunk)
+    tp = TileSpec(t_theta=spec.t_theta, t_phi=spec.t_phi, t_r=spec.t_chunk)
+    xfeat, centers = tile_points_centered_direct_t(grid.theta, grid.phi, grid.r, cam, tp,
+                                                   n_tt, n_pt, n_ch)
+    geo = fr.RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,
+                           spec.t_theta * spec.t_phi)
+    return dict(tiles=tiles, grid=grid, geo=geo, c=w.shape[1], n_gw=gfeat.shape[1] + w.shape[1],
+                xfeat=xfeat.contiguous(), centers=centers.contiguous())
+
+
+def rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+@pytest.mark.parametrize("t_chunk,w_max", [(8, 256), (80, 256), (8, 16)])
+def test_cull_reduce_and_build_work_lists_equal_plain(dev, t_chunk, w_max):
+    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80, w_max=w_max)
+    x = _inputs(dev, spec)
+    t, geo = x["tiles"], x["geo"]
+    kb = t.words.shape[0] // spec.g_tile
+    words = t.words.reshape(kb, -1).contiguous()
+    lo = t.table[:, x["n_gw"] + 1].reshape(kb, -1).contiguous()
+    hi = t.table[:, x["n_gw"] + 2].reshape(kb, -1).contiguous()
+    tb = geo.n_ch * spec.t_chunk
+    before = fr.launch_counts()
+    alo, ahi = fr.cull_reduce(words, lo, hi, x["grid"].r, geo.n_tt, geo.n_pt, tb)
+    plo, phi = fr._cull_reduce_plain(words, lo, hi, x["grid"].r, geo.n_tt, geo.n_pt, tb)
+    assert torch.equal(alo, plo) and torch.equal(ahi, phi)
+    got = fr.build_work_lists(alo, ahi, geo.n_ch, spec.t_chunk, w_max)
+    ref = fr._build_work_lists_plain(alo, ahi, geo.n_ch, spec.t_chunk, w_max)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    after = fr.launch_counts()
+    assert after["cull_reduce"] == before["cull_reduce"] + 1
+    assert after["build_work_lists"] == before["build_work_lists"] + 1
+    assert bool(t.overflowed) == (w_max == 16)
+
+
+@pytest.mark.parametrize("occ", [False, True])
+@pytest.mark.parametrize("t_chunk", [8, 80])
+def test_rsort_fwd_and_bwd_match_plain(dev, occ, t_chunk):
+    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80)
+    x = _inputs(dev, spec, occ=occ)
+    t, geo, c = x["tiles"], x["geo"], x["c"]
+    words = t.words.reshape(-1).contiguous()
+    args = (x["xfeat"], x["centers"], t.table.detach().contiguous(), words)
+    out = fr.rsort_fwd(*args, t.fwd, t.n_items, geo, c)
+    ref = fr._rsort_fwd_plain(*args, t.fwd, t.n_items, geo, c)
+    assert out.shape == (geo.t_ang * geo.n_ch, c, geo.s_ang * spec.t_chunk)
+    assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    go = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    dt = fr.rsort_bwd(*args, t.bwd, t.n_items, go, geo, c)
+    dref = fr._rsort_bwd_plain(*args, t.bwd, t.n_items, go, geo, c)
+    assert dref.abs().max() > 0 and rel_l2(dt, dref) <= 1e-4
+    assert (dt[:, fr.FDIM + c:] == 0).all()
+
+
+@pytest.mark.parametrize("occ", [False, True])
+def test_render_and_grads_on_card_match_cpu_plain(dev, occ):
+    """The whole rsort render and backward on the card vs the CPU's plain
+    versions. The grid, forms and weights are computed by each device's own
+    libm, whose last-ulp differences the f32 form amplifies (measured on an
+    H100: histogram 1.0e-5, quaternion gradient 2.5e-4), so the bounds are
+    1e-4 and 1e-3; the kernels themselves are held tighter above."""
+    d = scene_np(48, 3)
+    st = RenderSettings(num_sampling_points=8, start=60, end=140, occlusion=occ,
+                        backend="pallas_rsort", rsort_spec=SPEC)
+    target = np.full(80, 0.1, np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        scene = scene_from_numpy(d, device)
+        _, h, ov = render_transient(
+            scene, torch.tensor([0.05, 0.0, -0.1], device=device),
+            gmath.volume_box_points(VOL, 0.6, device=device), C, DT,
+            torch.as_tensor(VOL, device=device), 1, st)
+        assert not bool(ov)
+        mse_loss(h, torch.as_tensor(target, device=device))[0].backward()
+        out[str(device)] = (h.detach().cpu(),
+                            {n: p.grad.cpu() for n, p in scene.named_parameters()})
+    (hc, gc), (hg, gg) = out["cpu"], out[str(dev)]
+    assert rel_l2(hg, hc) <= 1e-4
+    for n in gc:
+        assert rel_l2(gg[n], gc[n]) <= 1e-3, n
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = _inputs(dev, SPEC)
+    t, geo = x["tiles"], x["geo"]
+    words = t.words.reshape(-1).contiguous()
+    with pytest.raises(TypeError):
+        fr.rsort_fwd(x["xfeat"].double(), x["centers"], t.table.contiguous(), words,
+                     t.fwd, t.n_items, geo, 1)
+    with pytest.raises(ValueError):
+        fr.rsort_fwd(x["xfeat"], x["centers"].cpu(), t.table.contiguous(), words,
+                     t.fwd, t.n_items, geo, 1)
+    with pytest.raises(ValueError):
+        fr.rsort_fwd(x["xfeat"], x["centers"], t.table.contiguous(), words,
+                     t.fwd, t.n_items, geo, 3)
