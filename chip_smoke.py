@@ -3,22 +3,29 @@
 
     python3 chip_smoke.py
 
-The main path is the reference training regime at the bench scene's full
+The main paths are the reference training regime at the bench scene's full
 size: 100k Gaussians (numpy seed 0, sigma 2-12 mm), one scan point per step,
-32x32 angles x 200 bins (bins 100..300), no occlusion, the `pallas_rsort`
-backend with capacities fitted by `tune_rsort_spec`, MSE, backward and the
-6-group Adam update. Phases:
+32x32 angles x 200 bins (bins 100..300), no occlusion, capacities fitted by
+`tune_rsort_spec`, MSE, backward and the 6-group Adam update, through the
+`pallas_rsort` backend (sampled field, kernels K1-K4) and the
+`pallas_analytic` backend (exact per-bin erf integrals, K1, K2, K5, K6).
+Phases:
 
-  1. build the four CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
+  1. build the six CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
   2. hold each kernel against its plain PyTorch version on the card at the
-     slice's shapes (K1/K2 exactly equal, K3 rel_l2 <= 1e-5, K4 rel_l2 <=
-     1e-4 over visited blocks) and time both with CUDA events;
-  3. hold the 100k forward histogram to the Gaussian-chunked dense
-     reference (rel_l2 < 2.5e-3);
-  4. at 5k Gaussians, hold every parameter group's gradient to autograd
-     through the chunked dense reference (cosine >= 0.999);
-  5. reset the launch counters, take >= 20 train steps at 100k (finite
-     losses, no overflow), time them, and require every kernel to have run.
+     main paths' shapes (K1/K2 exactly equal, K3 and K5 rel_l2 <= 1e-5, K4
+     and K6 rel_l2 <= 1e-4 over visited blocks) and time both with CUDA
+     events;
+  3. hold the 100k `pallas_rsort` forward histogram to the Gaussian-chunked
+     dense reference (rel_l2 < 2.5e-3), and the 100k `pallas_analytic` one
+     to the chunked dense `analytic` backend (< 2.5e-3) and to the chunked
+     numerical dense reference (< 3e-3);
+  4. at 5k Gaussians, hold every parameter group's gradient of each kernel
+     backend to autograd through its chunked dense reference (cosine >=
+     0.999);
+  5. for each backend: reset the launch counters, take >= 20 train steps at
+     100k (finite losses, no overflow), time them, and require each of its
+     kernels to have run.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -39,6 +46,8 @@ N_GAUSSIANS = 100_000
 N_GRAD = 5_000
 TRAIN_STEPS = 25
 WARMUP_STEPS = 3
+RSORT_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
+ANALYTIC_KERNELS = ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd")
 VOLUME_POSITION = np.array([0.0, 1.0, 0.0], dtype=np.float32)
 VOLUME_SIZE = 0.6
 C_LIGHT, DELTA_T = 1.0, 0.0052  # bins 100..300 cover radii ~0.52..1.56 m
@@ -139,6 +148,7 @@ def main() -> int:
     from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
     from nlos_gaussian_renderer_tpu_torch.data.synthetic import make_scan_grid
     from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
     from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
     from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
     from nlos_gaussian_renderer_tpu_torch.ops.fused import TileSpec, tile_points_centered_direct_t
@@ -182,7 +192,7 @@ def main() -> int:
     nb = END - START
     base_spec = fr.RSortSpec(t_chunk=-(-nb // 8) * 8, gate_bins=8)
 
-    scene, rng = bench_scene(torch, N_GAUSSIANS, 0, dev)
+    scene, _ = bench_scene(torch, N_GAUSSIANS, 0, dev)
 
     @phase("tune rsort caps (100k)")
     def tune(sc):
@@ -271,9 +281,31 @@ def main() -> int:
             kernel_rows["rsort_bwd"] = dict(
                 max_abs_err=float((o4 - r4).abs().max()), rel_l2=e4,
                 ms=cuda_time(torch, k4, 20), plain_ms=cuda_time(torch, p4, 3))
+
+            # K5 / K6 on the same cull, at the pallas_analytic path's shapes.
+            an = (*fa.analytic_operands(grid, pcam, spec), table, wflat)
+            k5 = lambda: fa.analytic_fwd(*an, tiles.fwd, tiles.n_items, geo, c)
+            p5 = lambda: fa._analytic_fwd_plain(*an, tiles.fwd, tiles.n_items, geo, c)
+            o5, r5 = k5(), p5()
+            e5 = rel_l2(o5, r5)
+            check(e5 <= 1e-5, f"K5 analytic_fwd rel_l2 {e5:.3e} <= 1e-5")
+            kernel_rows["analytic_fwd"] = dict(
+                max_abs_err=float((o5 - r5).abs().max()), rel_l2=e5,
+                ms=cuda_time(torch, k5, 10), plain_ms=cuda_time(torch, p5, 3))
+
+            go5 = torch.randn(o5.shape, generator=gen, device=dev)
+            k6 = lambda: fa.analytic_bwd(*an, tiles.bwd, tiles.n_items, go5, geo, c)
+            p6 = lambda: fa._analytic_bwd_plain(*an, tiles.bwd, tiles.n_items, go5, geo, c)
+            o6, r6 = k6(), p6()
+            e6 = rel_l2(o6[rows], r6[rows])
+            check(e6 <= 1e-4, f"K6 analytic_bwd rel_l2 {e6:.3e} <= 1e-4 (visited blocks)")
+            check(bool((o6[~rows] == 0).all()), "K6 leaves unvisited blocks zero")
+            kernel_rows["analytic_bwd"] = dict(
+                max_abs_err=float((o6 - r6).abs().max()), rel_l2=e6,
+                ms=cuda_time(torch, k6, 10), plain_ms=cuda_time(torch, p6, 3))
         for name, row in kernel_rows.items():
             log(f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"max_abs_err {row['max_abs_err']:.3e}")
+                f"max_abs_err {row['max_abs_err']:.3e}, on {card}")
         return True
 
     kernels_vs_plain()
@@ -291,9 +323,28 @@ def main() -> int:
         check(bool(torch.isfinite(hk).all()) and hk.shape == (nb,),
               "100k histogram finite, shape (200,)")
         check(e < 2.5e-3, f"100k forward rel_l2 {e:.3e} < 2.5e-3")
-        return e
+        return e, hd
 
-    fwd_rel = forward_parity()
+    fwd_rel, hd_num = forward_parity() or (None, None)
+
+    @phase("100k pallas_analytic histogram vs chunked dense analytic and numerical")
+    def analytic_forward_parity():
+        st = settings._replace(backend="pallas_analytic")
+        with torch.no_grad():
+            _, hk, ov = render_transient(scene, pcam, box, C_LIGHT, DELTA_T, vol, 0, st)
+            _, ha, _ = render_transient(scene, pcam, box, C_LIGHT, DELTA_T, vol, 0,
+                                        st._replace(backend="analytic"))
+        ea = rel_l2(hk, ha)
+        check(not bool(ov), "100k pallas_analytic render did not overflow")
+        check(bool(torch.isfinite(hk).all()) and hk.shape == (nb,),
+              "100k pallas_analytic histogram finite, shape (200,)")
+        check(ea < 2.5e-3, f"100k pallas_analytic vs dense analytic rel_l2 {ea:.3e} < 2.5e-3")
+        en = rel_l2(hk, hd_num)
+        check(en < 3e-3, f"100k pallas_analytic vs numerical dense rel_l2 {en:.3e} < 3e-3")
+        log(f"(dense analytic vs numerical dense: rel_l2 {rel_l2(ha, hd_num):.3e})")
+        return ea, en
+
+    an_rel = analytic_forward_parity()
 
     @phase("5k gradients vs chunked dense autograd")
     def grad_parity():
@@ -302,9 +353,13 @@ def main() -> int:
                                    DELTA_T, base=base_spec)
         target = torch.as_tensor(rng5.random(nb).astype(np.float32), device=dev)
         cam = torch.tensor([0.1, 0.0, -0.05], device=dev)
+        st5 = settings._replace(rsort_spec=spec5)
         out = {}
-        for name, st, chunk in (("rsort", settings._replace(rsort_spec=spec5), None),
-                                ("dense", settings._replace(backend="dense"), 512)):
+        for name, st, chunk in (("pallas_rsort", st5, None),
+                                ("dense", st5._replace(backend="dense"), 512),
+                                ("pallas_analytic", st5._replace(backend="pallas_analytic"),
+                                 None),
+                                ("analytic", st5._replace(backend="analytic"), None)):
             sc5.zero_grad(set_to_none=True)
             _, h, ov = render_transient(sc5, cam, box, C_LIGHT, DELTA_T, vol, 1, st,
                                         gauss_chunk=chunk)
@@ -312,23 +367,27 @@ def main() -> int:
             check(not bool(ov), f"5k {name} render did not overflow")
             out[name] = {n: p.grad.detach().clone() for n, p in sc5.named_parameters()}
         res = {}
-        for n in out["dense"]:
-            a, b = out["rsort"][n], out["dense"][n]
-            res[n] = (rel_l2(a, b), cosine(a, b))
-            check(res[n][1] >= 0.999,
-                  f"5k grad {n}: rel_l2 {res[n][0]:.3e} cosine {res[n][1]:.6f} >= 0.999")
+        for kern, ref in (("pallas_rsort", "dense"), ("pallas_analytic", "analytic")):
+            for n in out[ref]:
+                a, b = out[kern][n], out[ref][n]
+                res[f"{kern}/{n}"] = r = (rel_l2(a, b), cosine(a, b))
+                check(r[1] >= 0.999,
+                      f"5k {kern} grad {n} vs {ref}: rel_l2 {r[0]:.3e} cosine {r[1]:.6f} >= 0.999")
         return res
 
     grad_res = grad_parity()
 
-    @phase("train 100k")
-    def train():
+    def train(backend, required):
+        """Reset the launch counters, take WARMUP_STEPS + TRAIN_STEPS steps of
+        `backend` at 100k, read the counters; returns (counts, ms/step)."""
+        sc, rng_t = bench_scene(torch, N_GAUSSIANS, 0, dev)
         optim = OptimizationParams()
-        state = create_train_state(scene, optim)
-        step = make_train_step(settings, optim, max_sh_degree=scene.max_sh_degree)
+        state = create_train_state(sc, optim)
+        step = make_train_step(settings._replace(backend=backend), optim,
+                               max_sh_degree=sc.max_sh_degree)
         cam_grid = torch.as_tensor(make_scan_grid(256, 256).T, device=dev)
-        targets = torch.as_tensor(rng.random((1, nb)).astype(np.float32), device=dev)
-        idx = rng.integers(0, cam_grid.shape[0], size=(WARMUP_STEPS + TRAIN_STEPS, 1))
+        targets = torch.as_tensor(rng_t.random((1, nb)).astype(np.float32), device=dev)
+        idx = rng_t.integers(0, cam_grid.shape[0], size=(WARMUP_STEPS + TRAIN_STEPS, 1))
         losses = []
         fr.reset_launch_counts()
         for i in range(WARMUP_STEPS):
@@ -348,24 +407,33 @@ def main() -> int:
         ms = ev0.elapsed_time(ev1) / TRAIN_STEPS
         loss_v = torch.stack(losses).cpu().numpy()
         check(len(loss_v) >= 20 and bool(np.isfinite(loss_v).all()),
-              f"{len(loss_v)} train steps at 100k, all losses finite "
+              f"{len(loss_v)} {backend} train steps at 100k, all losses finite "
               f"(first {loss_v[0]:.6g}, last {loss_v[-1]:.6g})")
-        check(all(v > 0 for v in counts.values()), f"launch counts {counts}")
-        check(bool(torch.isfinite(scene.means).all()), "parameters finite after training")
-        log(f"train step: {ms:.3f} ms/step (CUDA events), {host_ms:.3f} ms/step "
+        check(all(counts[k] > 0 for k in required), f"{backend} launch counts {counts}")
+        check(bool(torch.isfinite(sc.means).all()), "parameters finite after training")
+        log(f"{backend} train step: {ms:.3f} ms/step (CUDA events), {host_ms:.3f} ms/step "
             f"(host clock), {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up, on {card}")
         return counts, ms
 
-    trained = train()
-    if failures or trained is None or len(kernel_rows) != 4:
+    trained = {
+        backend: phase(f"train 100k {backend}")(train)(backend, required)
+        for backend, required in (("pallas_rsort", RSORT_KERNELS),
+                                  ("pallas_analytic", ANALYTIC_KERNELS))
+    }
+    if failures or None in trained.values() or len(kernel_rows) != 6:
         log(f"chip_smoke FAILED: {failures}")
         return 1
-    counts, ms = trained
-    log(f"summary: fwd_rel_l2={fwd_rel:.3e} train_ms_per_step={ms:.3f} grad="
-        + json.dumps({k: [float(f"{v[0]:.4g}"), float(f"{v[1]:.7g}")] for k, v in grad_res.items()}))
+    launches = {k: sum(c[k] for c, _ in trained.values()) for k in kernel_rows}
+    check(all(v > 0 for v in launches.values()), f"all six kernels launched: {launches}")
+    if failures:
+        return 1
+    log(f"summary: fwd_rel_l2={fwd_rel:.3e} analytic_rel_l2={an_rel} "
+        + " ".join(f"{b}_ms_per_step={ms:.3f}" for b, (_, ms) in trained.items())
+        + " grad=" + json.dumps({k: [float(f"{v[0]:.4g}"), float(f"{v[1]:.7g}")]
+                                 for k, v in grad_res.items()}))
     kernels = [
         dict(name=name, route="cuda", source=fr.KERNELS[name].source,
-             replaces=fr.KERNELS[name].replaces, launches=counts[name],
+             replaces=fr.KERNELS[name].replaces, launches=launches[name],
              max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"])
         for name, row in kernel_rows.items()
     ]

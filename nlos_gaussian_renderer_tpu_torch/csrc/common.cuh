@@ -88,6 +88,35 @@ __device__ __forceinline__ void center_transform_t(const float* d, float x0,
   out[9] = d[9];
 }
 
+// Per (Gaussian, ray) terms of the erf section integral of
+// exp(-(qa s^2 + qb s + qc)/2), in the order of the plain PyTorch version
+// (`fused_analytic._section_terms`): qa clamped >= 1e-8, phi = max(qc -
+// qb^2/(4qa), 0), pref = sqrt(2 pi)/2 * qa^-1/2 * exp(-phi/2), and an edge s
+// maps to z = sqrt(qa/2) * (s + qb/(2qa)). Everything before the exp is
+// correctly rounded, so kernel and plain version agree there to the last bit.
+struct SectionTerms {
+  float inv_qa, half_qb, shift, eh, pref, shq;
+};
+
+__device__ __forceinline__ SectionTerms section_terms(float qa, float qb,
+                                                      float qc) {
+  SectionTerms r;
+  qa = fmaxf(qa, 1e-8f);
+  r.inv_qa = __frcp_rn(qa);
+  const float sq = __fsqrt_rn(qa);
+  r.half_qb = MUL(0.5f, qb);
+  r.shift = MUL(r.half_qb, r.inv_qa);
+  const float phi = fmaxf(__fsub_rn(qc, MUL(r.half_qb, r.shift)), 0.f);
+  r.eh = expf(MUL(-0.5f, phi));
+  r.pref = MUL(__fdiv_rn(1.2533141373155001f, sq), r.eh);  // sqrt(2 pi) / 2
+  r.shq = MUL(sq, 0.7071067811865476f);                    // sqrt(1/2)
+  return r;
+}
+
+__device__ __forceinline__ float edge_z(const SectionTerms& r, float s) {
+  return MUL(r.shq, ADD(s, r.shift));
+}
+
 // First index in [lo, hi) whose key is >= k, for keys ascending in the range.
 template <typename KeyFn>
 __device__ __forceinline__ int first_at_least(int lo, int hi, int k, KeyFn key) {

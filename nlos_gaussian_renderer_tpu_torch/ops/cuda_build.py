@@ -1,7 +1,8 @@
 """Build-on-first-use loader for the CUDA kernels under `csrc/`.
 
-The kernels have a plain C interface and are bound with `ctypes`: `nvcc`
-compiles every `csrc/*.cu` file into one shared library for `sm_90a`, in a
+The kernels have a plain C interface and are bound with `ctypes`: one `nvcc`
+per `csrc/*.cu` file, all started together, compiles each to an object for
+`sm_90a`, and a last `nvcc` links them into one shared library, in a
 directory under the checkout's `build/` keyed by a hash of the sources and
 flags, so an edited kernel is never served stale. There is no fallback: a
 missing `nvcc` or a failed build raises.
@@ -20,10 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "nlos_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +32,8 @@ SIGNATURES = {
     "build_work_lists": [_P] * 2 + [_I] * 5 + [_P] * 6 + [_P],
     "rsort_fwd": [_P] * 7 + [_I] * 12 + [_P],
     "rsort_bwd": [_P] * 8 + [_I] * 13 + [_P],
+    "analytic_fwd": [_P] * 8 + [_I] * 12 + [_P],
+    "analytic_bwd": [_P] * 9 + [_I] * 13 + [_P],
 }
 
 _lock = threading.Lock()
@@ -60,19 +61,42 @@ def library_path() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libnlos_rsort.so"
+    return BUILD_ROOT / h.hexdigest()[:16] / "libnlos_kernels.so"
 
 
 def _build(out: Path) -> None:
     global build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out.parent / f"{s.stem}.{tag}.o" for s in units]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(units, objs)
+    ]
+    logs = []
+    try:
+        for s, p in zip(units, procs):
+            logs.append(f"== {s.name}\n{p.communicate(timeout=900)[0]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    build_log = "\n".join(logs)
+    failed = [s.name for s, p in zip(units, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = out.with_suffix(f".{tag}")
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, timeout=300)
+    build_log += link.stdout + link.stderr
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
     os.replace(tmp, out)
 
 

@@ -48,6 +48,8 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused import (
 )
 
 _JAX_RSORT = "nlos_gaussian_renderer_tpu/ops/fused_rsort.py"
+_JAX_ANALYTIC = "nlos_gaussian_renderer_tpu/ops/fused_analytic.py"
+_CSRC = "nlos_gaussian_renderer_tpu_torch/csrc"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -360,15 +362,12 @@ class _Kernel:
 
 KERNELS = {
     k.name: k for k in (
-        _Kernel("cull_reduce", "nlos_gaussian_renderer_tpu_torch/csrc/cull_reduce.cu",
-                f"{_JAX_RSORT}:630"),
-        _Kernel("build_work_lists",
-                "nlos_gaussian_renderer_tpu_torch/csrc/build_work_lists.cu",
-                f"{_JAX_RSORT}:522"),
-        _Kernel("rsort_fwd", "nlos_gaussian_renderer_tpu_torch/csrc/rsort_fwd.cu",
-                f"{_JAX_RSORT}:1243"),
-        _Kernel("rsort_bwd", "nlos_gaussian_renderer_tpu_torch/csrc/rsort_bwd.cu",
-                f"{_JAX_RSORT}:1304"),
+        _Kernel("cull_reduce", f"{_CSRC}/cull_reduce.cu", f"{_JAX_RSORT}:630"),
+        _Kernel("build_work_lists", f"{_CSRC}/build_work_lists.cu", f"{_JAX_RSORT}:522"),
+        _Kernel("rsort_fwd", f"{_CSRC}/rsort_fwd.cu", f"{_JAX_RSORT}:1243"),
+        _Kernel("rsort_bwd", f"{_CSRC}/rsort_bwd.cu", f"{_JAX_RSORT}:1304"),
+        _Kernel("analytic_fwd", f"{_CSRC}/analytic_fwd.cu", f"{_JAX_ANALYTIC}:258"),
+        _Kernel("analytic_bwd", f"{_CSRC}/analytic_bwd.cu", f"{_JAX_ANALYTIC}:340"),
     )
 }
 
@@ -849,6 +848,20 @@ def rsort_cull(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
     )
 
 
+def _field_table(tiles: RSortTiles, n_forms: int, c: int, who: str):
+    """The table the cull gathered, checked to be [forms | c weights | word |
+    3 geometry]: the field kernels read it, not the forms themselves."""
+    table = tiles.table
+    if table is None:
+        raise ValueError(f"{who} needs tiles culled with gw=...")
+    if table.shape[1] - n_forms - c - 1 != 3:
+        raise ValueError(
+            f"tiles.table width {table.shape[1]} does not match "
+            f"[{n_forms} forms | {c} weights | word | 3 geometry]"
+        )
+    return table
+
+
 def rsort_gaussian_field(gfeat, channel_weights, tiles: RSortTiles,
                          spec: RSortSpec, grid, cam):
     """Work-list-sparse field (num_r, ns, ns, C) + overflow flag.
@@ -860,15 +873,7 @@ def rsort_gaussian_field(gfeat, channel_weights, tiles: RSortTiles,
     n_pt = _cdiv(ns, spec.t_phi)
     n_ch = _cdiv(num_r, spec.t_chunk)
     c = channel_weights.shape[1]
-    table = tiles.table
-    if table is None:
-        raise ValueError("rsort_gaussian_field needs tiles culled with gw=...")
-    n_extra = table.shape[1] - gfeat.shape[1] - c - 1
-    if n_extra != 3:
-        raise ValueError(
-            f"tiles.table width {table.shape[1]} does not match "
-            f"[{FDIM} forms | {c} weights | word | 3 geometry]"
-        )
+    table = _field_table(tiles, gfeat.shape[1], c, "rsort_gaussian_field")
     if spec.t_chunk % spec.gate_bins:
         raise ValueError(
             f"gate_bins={spec.gate_bins} must divide t_chunk={spec.t_chunk}"

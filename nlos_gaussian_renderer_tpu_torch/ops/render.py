@@ -1,8 +1,8 @@
 """Differentiable confocal transient rendering (PyTorch).
 
-Port of `nlos_gaussian_renderer_tpu/ops/render.py` for the dense and
-`pallas_rsort` backends, with no occlusion or aggregate occlusion
-(`netf` / `nlos-neus`). For one scan point it renders the time-of-flight
+Port of `nlos_gaussian_renderer_tpu/ops/render.py` for the `dense`,
+`analytic`, `pallas_rsort` and `pallas_analytic` backends, with no occlusion
+or aggregate occlusion (`netf` / `nlos-neus`). For one scan point it renders the time-of-flight
 histogram of the Gaussian scene by integrating the field over spherical
 shells: field -> * sin(theta)/r^2 -> * volume_y^2 -> sum over angles ->
 * dtheta * dphi.
@@ -22,6 +22,8 @@ from torch.utils.checkpoint import checkpoint
 
 from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+from nlos_gaussian_renderer_tpu_torch.ops.analytic import analytic_field_response
+from nlos_gaussian_renderer_tpu_torch.ops.fused_analytic import analytic_gaussian_field
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import (
     RSortSpec,
     rsort_cull,
@@ -33,15 +35,20 @@ from nlos_gaussian_renderer_tpu_torch.ops.sampling import (
     shell_grid,
 )
 
-BACKENDS = ("dense", "pallas_rsort")
+BACKENDS = ("dense", "analytic", "pallas_rsort", "pallas_analytic")
+# Every backend name the JAX package accepts; any other maps to 'dense'.
+_JAX_BACKENDS = ("pallas", "pallas_rsort", "pallas_analytic", "pallas_dsort",
+                 "analytic")
+RSORT_FAMILY = ("pallas_rsort", "pallas_analytic")
 
 
 class RenderSettings(NamedTuple):
     """Static rendering configuration.
 
-    `backend` keeps the JAX package's names: 'dense' (plain tensor ops) and
-    'pallas_rsort' (the work-list kernels). The JAX package's other backends
-    are not ported yet and raise.
+    `backend` keeps the JAX package's names: 'dense' (plain tensor ops),
+    'analytic' (closed-form erf sections, plain tensor ops), 'pallas_rsort'
+    and 'pallas_analytic' (the work-list kernels). The JAX package's other
+    backends ('pallas', 'pallas_dsort') are not ported yet and raise.
     """
 
     num_sampling_points: int
@@ -78,7 +85,7 @@ class RenderSettings(NamedTuple):
             occlusion_mode=cfg.occlusion_mode,
             scaling_modifier=cfg.scaling_modifier,
             apply_volume_y2_factor=cfg.apply_volume_y2_factor,
-            backend=cfg.renderer,
+            backend=cfg.renderer if cfg.renderer in _JAX_BACKENDS else "dense",
             rsort_spec=RSortSpec(t_chunk=t_chunk, gate_bins=gate_bins),
         )
 
@@ -179,9 +186,10 @@ def field_response(scene: GaussianScene, points, camera_pos, c, delta_t,
 
 def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
                           c, delta_t, active_sh_degree, settings: RenderSettings):
-    """`field_response` through the rsort cull and the work-list kernels.
-    Returns ((A,) response, overflow flag)."""
-    if settings.backend != "pallas_rsort":
+    """`field_response` through the rsort cull and the work-list kernels of
+    the settings' backend ('pallas_rsort': sampled field, 'pallas_analytic':
+    exact per-bin integrals). Returns ((A,) response, overflow flag)."""
+    if settings.backend not in RSORT_FAMILY:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
     gfeat = scene.quadratic_form(settings.scaling_modifier)
@@ -191,9 +199,40 @@ def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
         grid.phi, grid.r, spec, settings.scaling_modifier,
         gw=torch.cat([gfeat, w], dim=1),
     )
-    field, overflow = rsort_gaussian_field(gfeat, w, tiles, spec, grid, camera_pos)
+    if settings.backend == "pallas_analytic":
+        field, overflow = analytic_gaussian_field(gfeat, w, grid, tiles, spec,
+                                                  camera_pos)
+    else:
+        field, overflow = rsort_gaussian_field(gfeat, w, tiles, spec, grid,
+                                               camera_pos)
     both = field.reshape(-1, w.shape[1])
     return _composite(both, c, delta_t, settings), overflow
+
+
+@torch.no_grad()
+def check_culling_capacity(scene: GaussianScene, camera_pos, box_points, c,
+                           delta_t, settings: RenderSettings) -> dict:
+    """Cull one representative scan point and report whether the rsort
+    family's static capacities saturate: {'backend', 'overflowed', ...}.
+    Backends without capacities report no overflow."""
+    if settings.backend not in BACKENDS:
+        raise NotImplementedError(f"backend {settings.backend!r} is not ported")
+    if settings.backend not in RSORT_FAMILY:
+        return {"backend": settings.backend, "overflowed": False}
+    grid = shell_grid(camera_pos, box_points, settings.num_sampling_points,
+                      settings.start, settings.end, c, delta_t)
+    spec = settings.rsort_spec
+    t = rsort_cull(scene.means, scene.scales, scene.alive, camera_pos,
+                   grid.theta, grid.phi, grid.r, spec, settings.scaling_modifier)
+    return {
+        "backend": settings.backend,
+        "overflowed": bool(t.overflowed),
+        "max_count": int(torch.max(t.counts)),
+        "n_groups": int(t.n_groups),
+        "max_groups": spec.max_groups,
+        "n_items": int(t.n_items[0]),
+        "w_max": spec.w_max,
+    }
 
 
 def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
@@ -203,8 +242,8 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
     """Render (transient (num_r, ns^2), histogram (num_r,), overflow ()).
 
     `overflow` is True when the rsort work list saturated (contributions
-    were dropped); it is constant False on the dense backend.
-    `gauss_chunk` chunks the dense backend's sum over Gaussians.
+    were dropped); it is constant False on the dense and analytic backends.
+    `gauss_chunk` chunks their sum over Gaussians.
     """
     if settings.backend not in BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
@@ -212,12 +251,17 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
         camera_pos, box_points, settings.num_sampling_points, settings.start,
         settings.end, c, delta_t,
     )
-    if settings.backend == "pallas_rsort":
+    overflow = torch.zeros((), dtype=torch.bool, device=camera_pos.device)
+    if settings.backend in RSORT_FAMILY:
         out, overflow = field_response_pallas(
             scene, grid, camera_pos, c, delta_t, active_sh_degree, settings
         )
+    elif settings.backend == "analytic":
+        out = analytic_field_response(
+            scene, grid, camera_pos, c, delta_t, active_sh_degree, settings,
+            gauss_chunk,
+        )
     else:
-        overflow = torch.zeros((), dtype=torch.bool, device=camera_pos.device)
         out = field_response(
             scene, grid.points.reshape(-1, 3), camera_pos, c, delta_t,
             active_sh_degree, settings, gauss_chunk,
@@ -228,6 +272,26 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
         result = result * (volume_position[1] ** 2)
     hist = torch.sum(result, dim=1) * grid.dtheta * grid.dphi
     return result, hist, overflow
+
+
+def render_histogram(scene, camera_pos, box_points, c, delta_t, volume_position,
+                     active_sh_degree, settings: RenderSettings):
+    """(num_r,) histogram only."""
+    return render_transient(scene, camera_pos, box_points, c, delta_t,
+                            volume_position, active_sh_degree, settings)[1]
+
+
+def render_histogram_batch(scene, camera_positions, box_points, c, delta_t,
+                           volume_position, active_sh_degree,
+                           settings: RenderSettings):
+    """(B, num_r) histograms of a batch of scan points, one render per
+    camera (the JAX version's sequential map of the kernel backends; its
+    vmap of the dense ones computes the same rows)."""
+    return torch.stack([
+        render_histogram(scene, cam, box_points, c, delta_t, volume_position,
+                         active_sh_degree, settings)
+        for cam in camera_positions
+    ])
 
 
 def mse_loss(pred_hist, target_hist):

@@ -9,7 +9,7 @@ Port of the step half of `nlos_gaussian_renderer_tpu/train.py`:
   - SH-degree annealing every `sh_anneal_interval` steps.
 
 PyTorch idiom: the train step updates the scene's parameters and the
-optimizer state in place. A step whose render overflowed the rsort work
+optimizer state in place. A step whose render overflowed an rsort-family work
 list raises before the update (the re-tune and replay machinery of the JAX
 `fit` is not ported yet). SGLD position noise is not ported.
 """
@@ -83,7 +83,7 @@ class StepAux(NamedTuple):
     equal_loss: torch.Tensor
     pred_hist: torch.Tensor  # (B, num_r)
     target_hist: torch.Tensor
-    # True when the rsort work list saturated during this step's render.
+    # True when an rsort-family work list saturated during this step's render.
     overflow: torch.Tensor
 
 
@@ -140,8 +140,9 @@ def make_train_step(settings: RenderSettings, optim: OptimizationParams,
         loss.backward()
         if bool(aux.overflow):
             raise OverflowError(
-                f"rsort work list overflowed (w_max={settings.rsort_spec.w_max}); "
-                "re-tune the capacities with tune_rsort_spec"
+                f"{settings.backend}: the rsort-family work list overflowed "
+                f"(w_max={settings.rsort_spec.w_max}); re-tune the capacities "
+                "with tune_rsort_spec"
             )
         state.optimizer.step()
         state.scheduler.step()

@@ -35,9 +35,9 @@ def test_port_module_imports_no_jax(path):
 def test_port_has_the_mirrored_modules():
     for rel in ("configs/default.py", "models/scene.py", "ops/math.py",
                 "ops/sampling.py", "ops/schedule.py", "ops/render.py",
-                "ops/fused.py", "ops/fused_rsort.py", "train.py",
-                "data/synthetic.py"):
+                "ops/fused.py", "ops/fused_rsort.py", "ops/analytic.py",
+                "ops/fused_analytic.py", "train.py", "data/synthetic.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
-                       "rsort_bwd.cu"}
+                       "rsort_bwd.cu", "analytic_fwd.cu", "analytic_bwd.cu"}

@@ -1,19 +1,21 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The six CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips (from its fixture) where no GPU is present.
 On the card: `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
 (the suite conftest imports jax, which the card's machine does not have).
 Shapes are the small ones of tests/test_torch_rsort.py, one and two
 channels, one and several radial chunks, and an overflowed work list.
-Tolerances: K1/K2 outputs exactly equal; K3 rel_l2 <= 1e-5; K4 rel_l2 <=
-1e-4 (the kernels evaluate the form in the plain versions' operation order;
-only the order of the sums over Gaussians and samples differs)."""
+Tolerances: K1/K2 outputs exactly equal; K3 and K5 rel_l2 <= 1e-5; K4 and
+K6 rel_l2 <= 1e-4 (the kernels evaluate the forms and section terms in the
+plain versions' operation order; only the order of the sums over Gaussians,
+bins and samples differs)."""
 
 import numpy as np
 import pytest
 import torch
 
 from nlos_gaussian_renderer_tpu_torch.models.scene import scene_from_numpy
+from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
 from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
 from nlos_gaussian_renderer_tpu_torch.ops.fused import (
@@ -74,7 +76,7 @@ def _inputs(dev, spec, occ=False, ns=8, start=60, end=140):
                                                    n_tt, n_pt, n_ch)
     geo = fr.RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,
                            spec.t_theta * spec.t_phi)
-    return dict(tiles=tiles, grid=grid, geo=geo, c=w.shape[1], n_gw=gfeat.shape[1] + w.shape[1],
+    return dict(tiles=tiles, grid=grid, cam=cam, geo=geo, c=w.shape[1], n_gw=gfeat.shape[1] + w.shape[1],
                 xfeat=xfeat.contiguous(), centers=centers.contiguous())
 
 
@@ -128,15 +130,41 @@ def test_rsort_fwd_and_bwd_match_plain(dev, occ, t_chunk):
 
 
 @pytest.mark.parametrize("occ", [False, True])
-def test_render_and_grads_on_card_match_cpu_plain(dev, occ):
-    """The whole rsort render and backward on the card vs the CPU's plain
-    versions. The grid, forms and weights are computed by each device's own
+@pytest.mark.parametrize("t_chunk", [8, 80])
+def test_analytic_fwd_and_bwd_match_plain(dev, occ, t_chunk):
+    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80)
+    x = _inputs(dev, spec, occ=occ)
+    t, geo, c = x["tiles"], x["geo"], x["c"]
+    args = (*fa.analytic_operands(x["grid"], x["cam"], spec), t.table.detach().contiguous(),
+            t.words.reshape(-1).contiguous())
+    before = fr.launch_counts()
+    out = fa.analytic_fwd(*args, t.fwd, t.n_items, geo, c)
+    ref = fa._analytic_fwd_plain(*args, t.fwd, t.n_items, geo, c)
+    assert out.shape == (geo.t_ang * geo.n_ch, c, geo.s_ang * spec.t_chunk)
+    assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    go = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    dt = fa.analytic_bwd(*args, t.bwd, t.n_items, go, geo, c)
+    dref = fa._analytic_bwd_plain(*args, t.bwd, t.n_items, go, geo, c)
+    rows = t.blk_has_work.repeat_interleave(spec.g_tile)
+    assert dref.abs().max() > 0 and rel_l2(dt[rows], dref[rows]) <= 1e-4
+    assert (dt[~rows] == 0).all() and (dt[:, fr.FDIM + c:] == 0).all()
+    after = fr.launch_counts()
+    for name in ("analytic_fwd", "analytic_bwd"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("backend", ["pallas_rsort", "pallas_analytic"])
+@pytest.mark.parametrize("occ", [False, True])
+def test_render_and_grads_on_card_match_cpu_plain(dev, occ, backend):
+    """The whole rsort-family render and backward on the card vs the CPU's
+    plain versions. The grid, forms and weights are computed by each device's own
     libm, whose last-ulp differences the f32 form amplifies (measured on an
     H100: histogram 1.0e-5, quaternion gradient 2.5e-4), so the bounds are
     1e-4 and 1e-3; the kernels themselves are held tighter above."""
     d = scene_np(48, 3)
     st = RenderSettings(num_sampling_points=8, start=60, end=140, occlusion=occ,
-                        backend="pallas_rsort", rsort_spec=SPEC)
+                        backend=backend, rsort_spec=SPEC)
     target = np.full(80, 0.1, np.float32)
     out = {}
     for device in ("cpu", dev):
@@ -168,3 +196,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fr.rsort_fwd(x["xfeat"], x["centers"], t.table.contiguous(), words,
                      t.fwd, t.n_items, geo, 3)
+    slab, aux, edges = fa.analytic_operands(x["grid"], x["cam"], SPEC)
+    with pytest.raises(ValueError):
+        fa.analytic_fwd(slab[:, :10].contiguous(), aux, edges, t.table.contiguous(), words,
+                        t.fwd, t.n_items, geo, 1)
+    with pytest.raises(ValueError):
+        fa.analytic_bwd(slab, aux, edges.cpu(), t.table.contiguous(), words, t.bwd,
+                        t.n_items, torch.zeros((2 * geo.n_ch, 1, 256), device=dev), geo, 1)
