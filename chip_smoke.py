@@ -1,31 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 The main paths are the reference training regime at the bench scene's full
 size: 100k Gaussians (numpy seed 0, sigma 2-12 mm), one scan point per step,
-32x32 angles x 200 bins (bins 100..300), no occlusion, capacities fitted by
-`tune_rsort_spec`, MSE, backward and the 6-group Adam update, through the
-`pallas_rsort` backend (sampled field, kernels K1-K4) and the
-`pallas_analytic` backend (exact per-bin erf integrals, K1, K2, K5, K6).
+32x32 angles x 200 bins (bins 100..300), no occlusion, MSE, backward and the
+6-group Adam update, through three kernel backends:
+
+  - `pallas_rsort` (sampled field; kernels K1-K4), capacities fitted by
+    `tune_rsort_spec`;
+  - `pallas_analytic` (exact per-bin erf integrals; K1, K2, K5, K6);
+  - `pallas` (the tile backend; K7, K8), `k_max` fitted by
+    `fit_culling_capacity` on the five probe scan points.
+
 Phases:
 
-  1. build the six CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (K1/K2 exactly equal, K3 and K5 rel_l2 <= 1e-5, K4
-     and K6 rel_l2 <= 1e-4 over visited blocks) and time both with CUDA
-     events;
-  3. hold the 100k `pallas_rsort` forward histogram to the Gaussian-chunked
-     dense reference (rel_l2 < 2.5e-3), and the 100k `pallas_analytic` one
-     to the chunked dense `analytic` backend (< 2.5e-3) and to the chunked
-     numerical dense reference (< 3e-3);
-  4. at 5k Gaussians, hold every parameter group's gradient of each kernel
+  1. build the eight CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
+  2. fit the capacities (rsort caps on the bench's three probe cameras; the
+     tile `k_max` from 2048 by doubling on the corners and middle of the
+     256x256 scan grid);
+  3. hold each kernel against its plain PyTorch version on the card at the
+     main paths' shapes, centre camera (K1/K2 exactly equal; K3, K5, K7
+     rel_l2 <= 1e-5; K4, K6 rel_l2 <= 1e-4 over visited blocks; K8 <= 1e-4
+     on rows below each tile's count and exactly 0 past it), time both with
+     CUDA events, and print each kernel's work count and roofline bound;
+  4. hold the 100k forward histograms to the Gaussian-chunked dense
+     reference (`pallas_rsort` and `pallas` rel_l2 < 2.5e-3), and
+     `pallas_analytic` to the chunked dense `analytic` backend (< 2.5e-3)
+     and to the chunked numerical dense reference (< 3e-3);
+  5. at 5k Gaussians, hold every parameter group's gradient of each kernel
      backend to autograd through its chunked dense reference (cosine >=
      0.999);
-  5. for each backend: reset the launch counters, take >= 20 train steps at
-     100k (finite losses, no overflow), time them, and require each of its
-     kernels to have run.
+  6. for each backend: reset the launch counters, take 3 warm-up and 25
+     timed train steps at 100k (finite losses), time them, read the
+     counters, and require each of its kernels to have run. The steps run
+     behind `train.GatedTrainStep`: a step whose lists overflow raises
+     before the update, is re-fitted (grow only) on the probes plus that
+     step's camera and replayed from the unchanged state (a replay that
+     overflows again fails). After the counters are read, 10 more
+     steps run under `torch.profiler`: device time per step, device events
+     per step, the largest kernels, and the busy share (device time over
+     the timed ms/step). A profiler that fails is reported, not fatal.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -46,13 +62,25 @@ N_GAUSSIANS = 100_000
 N_GRAD = 5_000
 TRAIN_STEPS = 25
 WARMUP_STEPS = 3
-RSORT_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
-ANALYTIC_KERNELS = ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd")
+PROFILE_STEPS = 10
+PATH_KERNELS = {
+    "pallas_rsort": ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd"),
+    "pallas_analytic": ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd"),
+    "pallas": ("field_fwd", "field_bwd"),
+}
 VOLUME_POSITION = np.array([0.0, 1.0, 0.0], dtype=np.float32)
 VOLUME_SIZE = 0.6
 C_LIGHT, DELTA_T = 1.0, 0.0052  # bins 100..300 cover radii ~0.52..1.56 m
 NS, START, END = 32, 100, 300
 PROBE_CAMS = np.array([[-0.4, 0, -0.4], [0, 0, 0], [0.4, 0, 0.4]], np.float32)
+SCAN_M = SCAN_N = 256
+# Peak rates of one H100 SXM at its 700 W limit: HBM3 bytes/s and non-tensor
+# FP32 FLOP/s (NVIDIA's data sheet), and MUFU (SFU) results/s: 16 per SM per
+# clock (CUDA C++ Programming Guide, throughput table, compute capability
+# 9.0) x 132 SMs x 1.98 GHz boost.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+MUFU_PER_S = 16 * 132 * 1.98e9
 
 failures: list = []
 
@@ -103,6 +131,16 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
 
 
+def probe_scan_points() -> np.ndarray:
+    """The JAX package's capacity probes (`train.probe_scan_points`): the
+    four corners and the middle of the 256x256 scan grid."""
+    from nlos_gaussian_renderer_tpu_torch.data.synthetic import make_scan_grid
+
+    grid = make_scan_grid(SCAN_M, SCAN_N).T
+    m, n = SCAN_M, SCAN_N
+    return grid[sorted({0, n - 1, (m - 1) * n, m * n - 1, (m * n) // 2})]
+
+
 def bench_scene(torch, n, seed, dev, max_sh_degree=0, random_pose=False):
     """The bench scene of `bench.py`: the synthetic blob cluster with
     log-uniform sigma in [2, 12] mm. `random_pose` also draws quaternions
@@ -136,6 +174,66 @@ def cuda_time(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(name, work, n_bytes, flops, mufu):
+    """Roofline bound of one launch: the larger of its bytes over HBM
+    bandwidth and its FP32 operations / MUFU transcendentals over their peak
+    rates. Logs the work count; returns (bound_ms, bound_by, what)."""
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S, "fp32": flops / FP32_FLOP_PER_S,
+             "mufu": mufu / MUFU_PER_S}
+    what = max(times, key=times.get)
+    ms = times[what] * 1e3
+    log(f"{name}: work {work}, {n_bytes / 1e6:.3f} MB, {flops:.4g} FP32 ops, "
+        f"{mufu:.4g} MUFU ops -> bound {ms:.6f} ms ({what})")
+    return ms, ("bytes" if what == "bytes" else "operations"), what
+
+
+def device_profile(torch, run, steps):
+    """Run the train steps `steps` under torch.profiler. Returns (device ms
+    per step, device events per step, {kernel: ms per step}) from the
+    device events' own times (kernels, memsets, copies); user annotations,
+    such as the optimizer's range, span kernels and are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in steps:
+            run(i)
+        torch.cuda.synchronize()
+    by_name, n_events = {}, 0
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False)
+                or e.name.startswith(("Optimizer.", "ProfilerStep"))):
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+        n_events += 1
+    k = len(steps)
+    return (sum(by_name.values()) / k, n_events / k,
+            {name: ms / k for name, ms in by_name.items()})
+
+
+def profile_group(name: str) -> str:
+    """The item of a device event's kernel name in the profile summary."""
+    from nlos_gaussian_renderer_tpu_torch.ops.cuda_build import KERNELS
+
+    for k in KERNELS:
+        if f"{k}_kernel" in name:
+            return k
+    low = name.lower()
+    if "multi_tensor_apply" in low:
+        return "Adam (foreach)"
+    if "sort" in low or "scan" in low:
+        return "sort / scan"
+    if "index" in low or "scatter" in low or "gather" in low:
+        return "gather / scatter"
+    if "memset" in low or "memcpy" in low or "fill" in low:
+        return "fill / copy"
+    return "elementwise and other"
+
+
 def main() -> int:
     import torch
 
@@ -148,15 +246,17 @@ def main() -> int:
     from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
     from nlos_gaussian_renderer_tpu_torch.data.synthetic import make_scan_grid
     from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+    from nlos_gaussian_renderer_tpu_torch.ops import fused as tf
     from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
     from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
     from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
-    from nlos_gaussian_renderer_tpu_torch.ops.fused import TileSpec, tile_points_centered_direct_t
     from nlos_gaussian_renderer_tpu_torch.ops.render import (
         RenderSettings, channel_weights, mse_loss, render_transient,
     )
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
-    from nlos_gaussian_renderer_tpu_torch.train import create_train_state, make_train_step
+    from nlos_gaussian_renderer_tpu_torch.train import (
+        GatedTrainStep, create_train_state, fit_culling_capacity,
+    )
 
     dev = torch.device("cuda")
     card = nvidia_smi()
@@ -191,6 +291,7 @@ def main() -> int:
                           backend="pallas_rsort")
     nb = END - START
     base_spec = fr.RSortSpec(t_chunk=-(-nb // 8) * 8, gate_bins=8)
+    probes = probe_scan_points()
 
     scene, _ = bench_scene(torch, N_GAUSSIANS, 0, dev)
 
@@ -201,10 +302,20 @@ def main() -> int:
         log(f"tuned: w_max={spec.w_max} max_groups={spec.max_groups}")
         return spec
 
+    @phase("fit tile k_max (100k)")
+    def fit_k_max(sc):
+        st = base._replace(backend="pallas", tile_spec=tf.TileSpec(8, 16, 64))
+        st, changed = fit_culling_capacity(st, sc, probes, box, C_LIGHT, DELTA_T,
+                                           grow_only=False)
+        log(f"fitted k_max={st.tile_spec.k_max} (from 2048, changed={changed}) on "
+            f"probes {probes.tolist()}")
+        return st.tile_spec
+
     spec = tune(scene)
-    if spec is None:
+    tile_spec = fit_k_max(scene)
+    if spec is None or tile_spec is None:
         return 1
-    settings = base._replace(rsort_spec=spec)
+    settings = base._replace(rsort_spec=spec, tile_spec=tile_spec)
     pcam = torch.zeros(3, device=dev)
     kernel_rows = {}
 
@@ -225,8 +336,19 @@ def main() -> int:
             lo = tiles.table[:, n_gw + 1].reshape(kb, spec.g_tile).contiguous()
             hi = tiles.table[:, n_gw + 2].reshape(kb, spec.g_tile).contiguous()
             tb = n_ch * spec.t_chunk
-            log(f"KB={kb} T_ang={n_tt * n_pt} n_items={int(tiles.n_items[0])} "
-                f"w_max={spec.w_max}")
+            n_items = int(tiles.n_items[0])
+            log(f"KB={kb} T_ang={n_tt * n_pt} n_items={n_items} w_max={spec.w_max}")
+
+            # Work of the field kernels K3-K6: member rows of each item, its
+            # bins, and the tile's rays.
+            lists = tiles.fwd[:, :n_items].long()
+            memb = fr._member_of(words[lists[2]], lists[0][:, None], n_tt, n_pt)
+            rows_it = memb.sum(1).double()
+            bins_it = (lists[5] - lists[4] + 1).double()
+            s_ang = spec.t_theta * spec.t_phi
+            row_rays = float((rows_it * s_ang).sum())
+            triples = float((rows_it * bins_it * s_ang).sum())
+            c = w.shape[1]
 
             k1 = lambda: fr.cull_reduce(words, lo, hi, grid.r, n_tt, n_pt, tb)
             p1 = lambda: fr._cull_reduce_plain(words, lo, hi, grid.r, n_tt, n_pt, tb)
@@ -235,7 +357,10 @@ def main() -> int:
             check(eq1, "K1 cull_reduce == plain (exact)")
             kernel_rows["cull_reduce"] = dict(
                 max_abs_err=float(max((alo - plo).abs().max(), (ahi - phi_).abs().max())),
-                ms=cuda_time(torch, k1, 50), plain_ms=cuda_time(torch, p1, 10))
+                ms=cuda_time(torch, k1, 50), plain_ms=cuda_time(torch, p1, 10),
+                bound=bound("cull_reduce", f"{kb * n_tt * n_pt * spec.g_tile} (block, tile, "
+                            "row) tests", nbytes(words, lo, hi, grid.r, alo, ahi),
+                            2 * kb * n_tt * n_pt * spec.g_tile, 0))
 
             k2 = lambda: fr.build_work_lists(alo, ahi, n_ch, spec.t_chunk, spec.w_max)
             p2 = lambda: fr._build_work_lists_plain(alo, ahi, n_ch, spec.t_chunk, spec.w_max)
@@ -245,17 +370,17 @@ def main() -> int:
             err2 = max(float((a - b).abs().max()) for a, b in zip(ok_k, ok_p))
             kernel_rows["build_work_lists"] = dict(
                 max_abs_err=err2, ms=cuda_time(torch, k2, 50),
-                plain_ms=cuda_time(torch, p2, 10))
+                plain_ms=cuda_time(torch, p2, 10),
+                bound=bound("build_work_lists", f"{kb * n_tt * n_pt} pairs -> {n_items} "
+                            "items", nbytes(alo, ahi, *ok_k), 4 * kb * n_tt * n_pt, 0))
 
-            tp = TileSpec(t_theta=spec.t_theta, t_phi=spec.t_phi, t_r=spec.t_chunk)
-            xfeat, centers = tile_points_centered_direct_t(
+            tp = tf.TileSpec(t_theta=spec.t_theta, t_phi=spec.t_phi, t_r=spec.t_chunk)
+            xfeat, centers = tf.tile_points_centered_direct_t(
                 grid.theta, grid.phi, grid.r, pcam, tp, n_tt, n_pt, n_ch)
             xfeat, centers = xfeat.contiguous(), centers.contiguous()
-            geo = fr.RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,
-                                   spec.t_theta * spec.t_phi)
+            geo = fr.RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile, s_ang)
             wflat = tiles.words.reshape(-1).contiguous()
             table = tiles.table.contiguous()
-            c = w.shape[1]
             k3 = lambda: fr.rsort_fwd(xfeat, centers, table, wflat, tiles.fwd,
                                       tiles.n_items, geo, c)
             p3 = lambda: fr._rsort_fwd_plain(xfeat, centers, table, wflat, tiles.fwd,
@@ -263,9 +388,13 @@ def main() -> int:
             o3, r3 = k3(), p3()
             e3 = rel_l2(o3, r3)
             check(e3 <= 1e-5, f"K3 rsort_fwd rel_l2 {e3:.3e} <= 1e-5")
+            # Per (row, sample) pair: the 10-term form, the exp, C multiply-adds.
             kernel_rows["rsort_fwd"] = dict(
                 max_abs_err=float((o3 - r3).abs().max()), rel_l2=e3,
-                ms=cuda_time(torch, k3, 20), plain_ms=cuda_time(torch, p3, 3))
+                ms=cuda_time(torch, k3, 20), plain_ms=cuda_time(torch, p3, 3),
+                bound=bound("rsort_fwd", f"{triples:.4g} (row, sample) pairs",
+                            nbytes(xfeat, centers, table, wflat, tiles.fwd, o3),
+                            triples * 2 * (10 + c), triples))
 
             gen = torch.Generator(device=dev).manual_seed(0)
             go = torch.randn(o3.shape, generator=gen, device=dev)
@@ -278,9 +407,13 @@ def main() -> int:
             e4 = rel_l2(o4[rows], r4[rows])
             check(e4 <= 1e-4, f"K4 rsort_bwd rel_l2 {e4:.3e} <= 1e-4 (visited blocks)")
             check(bool((o4[~rows] == 0).all()), "K4 leaves unvisited blocks zero")
+            # Per pair: the form, the exp, and the rank-C Z accumulation.
             kernel_rows["rsort_bwd"] = dict(
                 max_abs_err=float((o4 - r4).abs().max()), rel_l2=e4,
-                ms=cuda_time(torch, k4, 20), plain_ms=cuda_time(torch, p4, 3))
+                ms=cuda_time(torch, k4, 20), plain_ms=cuda_time(torch, p4, 3),
+                bound=bound("rsort_bwd", f"{triples:.4g} (row, sample) pairs",
+                            nbytes(xfeat, centers, table, wflat, tiles.bwd, go, o4),
+                            triples * (20 + 22 * c), triples))
 
             # K5 / K6 on the same cull, at the pallas_analytic path's shapes.
             an = (*fa.analytic_operands(grid, pcam, spec), table, wflat)
@@ -289,9 +422,17 @@ def main() -> int:
             o5, r5 = k5(), p5()
             e5 = rel_l2(o5, r5)
             check(e5 <= 1e-5, f"K5 analytic_fwd rel_l2 {e5:.3e} <= 1e-5")
+            # Per (row, ray): three 10-term forms and the section terms (rcp,
+            # sqrt, exp); per (row, bin, ray): two erff (libdevice: ~7 FMA
+            # and one MUFU ex2 each), the difference and C multiply-adds.
             kernel_rows["analytic_fwd"] = dict(
                 max_abs_err=float((o5 - r5).abs().max()), rel_l2=e5,
-                ms=cuda_time(torch, k5, 10), plain_ms=cuda_time(torch, p5, 3))
+                ms=cuda_time(torch, k5, 10), plain_ms=cuda_time(torch, p5, 3),
+                bound=bound("analytic_fwd", f"{row_rays:.4g} (row, ray) pairs, "
+                            f"{triples:.4g} (row, bin, ray) triples",
+                            nbytes(*an, tiles.fwd, o5),
+                            row_rays * 70 + triples * (34 + 2 * c),
+                            row_rays * 3 + triples * 2))
 
             go5 = torch.randn(o5.shape, generator=gen, device=dev)
             k6 = lambda: fa.analytic_bwd(*an, tiles.bwd, tiles.n_items, go5, geo, c)
@@ -300,11 +441,69 @@ def main() -> int:
             e6 = rel_l2(o6[rows], r6[rows])
             check(e6 <= 1e-4, f"K6 analytic_bwd rel_l2 {e6:.3e} <= 1e-4 (visited blocks)")
             check(bool((o6[~rows] == 0).all()), "K6 leaves unvisited blocks zero")
+            # Per (row, ray): the forms, section terms, and the 3 x 10
+            # cotangent contraction; per edge (bins + 1): one erff and one
+            # expf; per triple: the moment sums.
             kernel_rows["analytic_bwd"] = dict(
                 max_abs_err=float((o6 - r6).abs().max()), rel_l2=e6,
-                ms=cuda_time(torch, k6, 10), plain_ms=cuda_time(torch, p6, 3))
+                ms=cuda_time(torch, k6, 10), plain_ms=cuda_time(torch, p6, 3),
+                bound=bound("analytic_bwd", f"{row_rays:.4g} (row, ray) pairs, "
+                            f"{triples:.4g} (row, bin, ray) triples",
+                            nbytes(*an, tiles.bwd, go5, o6),
+                            row_rays * (130 + 14) + triples * (14 + 8 + 4 * c),
+                            row_rays * 5 + triples * 2))
+
+            # K7 / K8 at the pallas path's shapes: the tile cull with the
+            # fitted k_max, the uncentred monomials, the gathered lists.
+            tt = tf.cull_tiles(scene.means, scene.scales, scene.alive, pcam, grid.theta,
+                               grid.phi, grid.r, tile_spec)
+            check(not bool(tt.overflowed), f"tile cull fits k_max={tile_spec.k_max}")
+            dims = tf.tile_grid_dims(NS, nb, tile_spec)
+            xt = tf.tile_points(grid.points, NS, nb, tile_spec, *dims).contiguous()
+            gw = tf.take_rows(torch.cat([gfeat, w], 1), tt.indices, tt.counts)
+            gt = gw[..., :tf.FDIM].contiguous()
+            wt = (gw[..., tf.FDIM:] * tt.slot_valid[..., None]).contiguous()
+            counts = tt.counts
+            pairs = float(counts.double().sum()) * xt.shape[1]
+            rows_read = int(counts.sum()) * (tf.FDIM + c) * 4
+            log(f"tile lists: T={xt.shape[0]} A={xt.shape[1]} k_max={tile_spec.k_max} "
+                f"counts {counts.tolist()}")
+            k7 = lambda: tf.field_fwd(xt, gt, wt, counts)
+            p7 = lambda: tf._field_fwd_plain(xt, gt, wt, counts)
+            o7, r7 = k7(), p7()
+            e7 = rel_l2(o7, r7)
+            check(e7 <= 1e-5, f"K7 field_fwd rel_l2 {e7:.3e} <= 1e-5")
+            # Per pair, from K7's body: the 10-term form (19), the clamp and
+            # the -1/2 scale, one exp, C multiply-adds.
+            kernel_rows["field_fwd"] = dict(
+                max_abs_err=float((o7 - r7).abs().max()), rel_l2=e7,
+                ms=cuda_time(torch, k7, 10), plain_ms=cuda_time(torch, p7, 2),
+                bound=bound("field_fwd", f"{pairs:.4g} (row, sample) pairs",
+                            nbytes(xt, counts, o7) + rows_read,
+                            pairs * (21 + 2 * c), pairs))
+
+            go7 = torch.randn(o7.shape, generator=gen, device=dev)
+            k8 = lambda: tf.field_bwd(xt, gt, wt, counts, go7)
+            p8 = lambda: tf._field_bwd_plain(xt, gt, wt, counts, go7)
+            (dg8, dw8), (rg8, rw8) = k8(), p8()
+            live = torch.arange(tile_spec.k_max, device=dev)[None, :] < counts[:, None]
+            e8 = max(rel_l2(dg8[live], rg8[live]), rel_l2(dw8[live], rw8[live]))
+            check(e8 <= 1e-4, f"K8 field_bwd rel_l2 {e8:.3e} <= 1e-4 (rows below count)")
+            check(bool((dg8[~live] == 0).all() and (dw8[~live] == 0).all()),
+                  "K8 writes exact zeros past each tile's count")
+            # Per pair, from K8's body: the form, clamp and scale (21), one
+            # exp, dw's C multiply-adds, and where m > 0 (a positive definite
+            # form's value off its mean; counted for every pair) sum_c go w
+            # (2C - 1), dm (2) and dg's 10 multiply-adds: 42 + 4C.
+            kernel_rows["field_bwd"] = dict(
+                max_abs_err=float(max((dg8 - rg8).abs().max(), (dw8 - rw8).abs().max())),
+                rel_l2=e8, ms=cuda_time(torch, k8, 10), plain_ms=cuda_time(torch, p8, 2),
+                bound=bound("field_bwd", f"{pairs:.4g} (row, sample) pairs",
+                            nbytes(xt, counts, go7, dg8, dw8) + rows_read,
+                            pairs * (42 + 4 * c), pairs))
         for name, row in kernel_rows.items():
             log(f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound'][0]:.4f} ms ({row['bound'][2]}), "
                 f"max_abs_err {row['max_abs_err']:.3e}, on {card}")
         return True
 
@@ -346,28 +545,46 @@ def main() -> int:
 
     an_rel = analytic_forward_parity()
 
+    @phase("100k pallas (tile) histogram vs chunked dense")
+    def tile_forward_parity():
+        with torch.no_grad():
+            _, hk, ov = render_transient(scene, pcam, box, C_LIGHT, DELTA_T, vol, 0,
+                                         settings._replace(backend="pallas"))
+        e = rel_l2(hk, hd_num)
+        check(not bool(ov), "100k pallas render did not overflow")
+        check(bool(torch.isfinite(hk).all()) and hk.shape == (nb,),
+              "100k pallas histogram finite, shape (200,)")
+        check(e < 2.5e-3, f"100k pallas forward rel_l2 {e:.3e} < 2.5e-3")
+        return e
+
+    tile_rel = tile_forward_parity()
+
     @phase("5k gradients vs chunked dense autograd")
     def grad_parity():
         sc5, rng5 = bench_scene(torch, N_GRAD, 1, dev, max_sh_degree=1, random_pose=True)
         spec5 = fr.tune_rsort_spec(sc5, PROBE_CAMS, box, NS, START, END, C_LIGHT,
                                    DELTA_T, base=base_spec)
+        st5 = settings._replace(rsort_spec=spec5,
+                                tile_spec=tf.TileSpec(8, 16, 64))
+        st5, _ = fit_culling_capacity(st5._replace(backend="pallas"), sc5, probes, box,
+                                      C_LIGHT, DELTA_T, grow_only=False)
+        log(f"5k: w_max={spec5.w_max} max_groups={spec5.max_groups} "
+            f"k_max={st5.tile_spec.k_max} (G*T={N_GRAD * 32}: scatter compaction)")
         target = torch.as_tensor(rng5.random(nb).astype(np.float32), device=dev)
         cam = torch.tensor([0.1, 0.0, -0.05], device=dev)
-        st5 = settings._replace(rsort_spec=spec5)
         out = {}
-        for name, st, chunk in (("pallas_rsort", st5, None),
-                                ("dense", st5._replace(backend="dense"), 512),
-                                ("pallas_analytic", st5._replace(backend="pallas_analytic"),
-                                 None),
-                                ("analytic", st5._replace(backend="analytic"), None)):
+        for name, chunk in (("pallas_rsort", None), ("dense", 512),
+                            ("pallas_analytic", None), ("analytic", None),
+                            ("pallas", None)):
             sc5.zero_grad(set_to_none=True)
-            _, h, ov = render_transient(sc5, cam, box, C_LIGHT, DELTA_T, vol, 1, st,
-                                        gauss_chunk=chunk)
+            _, h, ov = render_transient(sc5, cam, box, C_LIGHT, DELTA_T, vol, 1,
+                                        st5._replace(backend=name), gauss_chunk=chunk)
             mse_loss(h, target)[0].backward()
             check(not bool(ov), f"5k {name} render did not overflow")
             out[name] = {n: p.grad.detach().clone() for n, p in sc5.named_parameters()}
         res = {}
-        for kern, ref in (("pallas_rsort", "dense"), ("pallas_analytic", "analytic")):
+        for kern, ref in (("pallas_rsort", "dense"), ("pallas_analytic", "analytic"),
+                          ("pallas", "dense")):
             for n in out[ref]:
                 a, b = out[kern][n], out[ref][n]
                 res[f"{kern}/{n}"] = r = (rel_l2(a, b), cosine(a, b))
@@ -377,64 +594,96 @@ def main() -> int:
 
     grad_res = grad_parity()
 
-    def train(backend, required):
+    def train(backend):
         """Reset the launch counters, take WARMUP_STEPS + TRAIN_STEPS steps of
-        `backend` at 100k, read the counters; returns (counts, ms/step)."""
+        `backend` at 100k, read the counters; returns (counts, ms/step,
+        step calls). A step that overflows a capacity is re-fitted and
+        replayed from the unchanged state by `GatedTrainStep`."""
         sc, rng_t = bench_scene(torch, N_GAUSSIANS, 0, dev)
         optim = OptimizationParams()
         state = create_train_state(sc, optim)
-        step = make_train_step(settings._replace(backend=backend), optim,
-                               max_sh_degree=sc.max_sh_degree)
-        cam_grid = torch.as_tensor(make_scan_grid(256, 256).T, device=dev)
+        step = GatedTrainStep(settings._replace(backend=backend), optim,
+                              sc.max_sh_degree, probes)
+        cam_grid = torch.as_tensor(make_scan_grid(SCAN_M, SCAN_N).T, device=dev)
         targets = torch.as_tensor(rng_t.random((1, nb)).astype(np.float32), device=dev)
-        idx = rng_t.integers(0, cam_grid.shape[0], size=(WARMUP_STEPS + TRAIN_STEPS, 1))
+        n_run = WARMUP_STEPS + TRAIN_STEPS
+        idx = rng_t.integers(0, cam_grid.shape[0], size=(n_run + PROFILE_STEPS, 1))
         losses = []
-        fr.reset_launch_counts()
+
+        def run_step(i):
+            return step(state, cam_grid[idx[i]], targets, box, C_LIGHT, DELTA_T, vol)
+
+        cuda_build.reset_launch_counts()
         for i in range(WARMUP_STEPS):
-            aux = step(state, cam_grid[idx[i]], targets, box, C_LIGHT, DELTA_T, vol)
-            losses.append(aux.loss)
+            losses.append(run_step(i).loss)
         torch.cuda.synchronize()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         ev0.record()
         for i in range(WARMUP_STEPS, WARMUP_STEPS + TRAIN_STEPS):
-            aux = step(state, cam_grid[idx[i]], targets, box, C_LIGHT, DELTA_T, vol)
-            losses.append(aux.loss)
+            losses.append(run_step(i).loss)
         ev1.record()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-        counts = fr.launch_counts()
+        # Each re-tune adds one step call: the attempt that overflowed.
+        counts, main_calls = cuda_build.launch_counts(), n_run + step.retunes
         ms = ev0.elapsed_time(ev1) / TRAIN_STEPS
         loss_v = torch.stack(losses).cpu().numpy()
         check(len(loss_v) >= 20 and bool(np.isfinite(loss_v).all()),
               f"{len(loss_v)} {backend} train steps at 100k, all losses finite "
               f"(first {loss_v[0]:.6g}, last {loss_v[-1]:.6g})")
-        check(all(counts[k] > 0 for k in required), f"{backend} launch counts {counts}")
+        check(all(counts[k] > 0 for k in PATH_KERNELS[backend]),
+              f"{backend} launch counts {counts}")
         check(bool(torch.isfinite(sc.means).all()), "parameters finite after training")
         log(f"{backend} train step: {ms:.3f} ms/step (CUDA events), {host_ms:.3f} ms/step "
-            f"(host clock), {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up, on {card}")
-        return counts, ms
+            f"(host clock), {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up, {main_calls} "
+            f"step calls ({step.retunes} re-tunes), k_max {step.settings.tile_spec.k_max}, "
+            f"on {card}")
+        try:
+            dev_ms, events, by_name = device_profile(torch, run_step,
+                                                     range(n_run, n_run + PROFILE_STEPS))
+        except Exception:  # a diagnostic, not a gate: reported and skipped
+            log(f"{backend} profile unavailable:\n{traceback.format_exc()}")
+        else:
+            log(f"{backend} profile over {PROFILE_STEPS} steps: device {dev_ms:.3f} ms/step, "
+                f"{events:.1f} device events/step, busy share {dev_ms / ms:.2f} of the "
+                f"timed {ms:.3f} ms/step, on {card}")
+            groups = {}
+            for name, kms in by_name.items():
+                g = profile_group(name)
+                groups[g] = groups.get(g, 0.0) + kms
+            for g, kms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                log(f"  {kms:8.4f} ms/step  {g}")
+            for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+                log(f"  {kms:8.4f} ms/step    kernel {name[:90]}")
+        return counts, ms, main_calls
 
     trained = {
-        backend: phase(f"train 100k {backend}")(train)(backend, required)
-        for backend, required in (("pallas_rsort", RSORT_KERNELS),
-                                  ("pallas_analytic", ANALYTIC_KERNELS))
+        backend: phase(f"train 100k {backend}")(train)(backend)
+        for backend in PATH_KERNELS
     }
-    if failures or None in trained.values() or len(kernel_rows) != 6:
+    if failures or None in trained.values() or len(kernel_rows) != 8:
         log(f"chip_smoke FAILED: {failures}")
         return 1
-    launches = {k: sum(c[k] for c, _ in trained.values()) for k in kernel_rows}
-    check(all(v > 0 for v in launches.values()), f"all six kernels launched: {launches}")
+    launches = {k: sum(c[k] for c, _, _ in trained.values()) for k in kernel_rows}
+    per_step = {}
+    for backend, (counts, _, calls) in trained.items():
+        for k in PATH_KERNELS[backend]:
+            per_step.setdefault(k, counts[k] / calls)
+    check(all(v > 0 for v in launches.values()), f"all eight kernels launched: {launches}")
     if failures:
         return 1
     log(f"summary: fwd_rel_l2={fwd_rel:.3e} analytic_rel_l2={an_rel} "
-        + " ".join(f"{b}_ms_per_step={ms:.3f}" for b, (_, ms) in trained.items())
+        f"tile_rel_l2={tile_rel:.3e} k_max={tile_spec.k_max} "
+        + " ".join(f"{b}_ms_per_step={ms:.3f}" for b, (_, ms, _) in trained.items())
         + " grad=" + json.dumps({k: [float(f"{v[0]:.4g}"), float(f"{v[1]:.7g}")]
                                  for k, v in grad_res.items()}))
     kernels = [
-        dict(name=name, route="cuda", source=fr.KERNELS[name].source,
-             replaces=fr.KERNELS[name].replaces, launches=launches[name],
-             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"])
+        dict(name=name, route="cuda", source=cuda_build.KERNELS[name].source,
+             replaces=cuda_build.KERNELS[name].replaces, launches=launches[name],
+             launches_per_step=per_step[name], max_abs_err=row["max_abs_err"],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
+             bound_by=row["bound"][1], library_ms=None)
         for name, row in kernel_rows.items()
     ]
     log(card)

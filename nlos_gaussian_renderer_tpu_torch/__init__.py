@@ -9,12 +9,15 @@ copied rather than imported.
 Conventions:
   - `GaussianScene` is an `nn.Module`; everything else is plain functions on
     tensors, which follow their inputs' device. Functions that create tensors
-    from host data take an explicit `device`.
+    from host data take a `device`, by default the CUDA card (they raise
+    without one; the CPU is used only when asked for, as the tests do).
   - Randomness comes from a caller's `torch.Generator` or from numpy.
-  - The four Pallas kernels of the `pallas_rsort` path are CUDA C++ kernels
-    under `csrc/`, built on first use (`ops/cuda_build.py`). Each wrapper in
-    `ops/fused_rsort.py` launches its kernel for CUDA tensors and runs the
-    plain PyTorch version beside it for CPU tensors.
+  - The eight Pallas kernels of the three kernel backends (`pallas`,
+    `pallas_rsort`, `pallas_analytic`) are CUDA C++ kernels under `csrc/`,
+    built on first use (`ops/cuda_build.py`). Each wrapper in `ops/fused.py`,
+    `ops/fused_rsort.py` and `ops/fused_analytic.py` launches its kernel for
+    CUDA tensors and runs the plain PyTorch version beside it for CPU
+    tensors.
 """
 
 __version__ = "0.1.0"

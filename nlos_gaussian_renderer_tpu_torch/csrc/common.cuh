@@ -1,5 +1,6 @@
-// Shared device helpers of the rsort kernels: rect-word membership, the
-// tile-centred form transform and its transpose, and block-wide int scans.
+// Shared device helpers of the field kernels: rect-word membership, the
+// quadratic form, the tile-centred form transform and its transpose, and
+// block-wide int scans.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,8 +27,8 @@ __device__ __forceinline__ bool rect_member(int word, int t, int n_pt,
 // The quadratic form and the centre transform cancel terms up to ~1e4 times
 // larger than their result (a 1 m radial tile of 2 mm Gaussians), so each
 // operation is spelled as a round-to-nearest intrinsic, in the order of the
-// plain PyTorch version (`fused_rsort._center_transform`, `_quad`): no FMA
-// contraction, and the two agree to the last bit before the exp.
+// plain PyTorch version (`fused_rsort._center_transform`, `fused.quad_form`):
+// no FMA contraction, and the two agree to the last bit before the exp.
 #define MUL __fmul_rn
 #define ADD __fadd_rn
 

@@ -33,7 +33,8 @@ def make_ground_truth_scene(
     device=None,
 ) -> GaussianScene:
     """A random Gaussian blob cluster inside the hidden volume, with solid
-    opacities (0.8) and isotropic scales of 6% of the volume size."""
+    opacities (0.8) and isotropic scales of 6% of the volume size, on
+    `device` (by default the CUDA card, as `init_scene`)."""
     half = 0.3 * volume_size
     points = volume_position[None, :] + rng.uniform(
         -half, half, size=(num_gaussians, 3)

@@ -120,7 +120,10 @@ def init_scene(
     SH DC = rho_to_sh(rho), higher orders zero; isotropic scales from the
     reference's box heuristic (pmax_x - pmin_x) / n; identity quaternions;
     opacity sigmoid^-1(0.1). Capacity slots beyond len(points) are dead.
+    The scene lies on `device`, by default the CUDA card
+    (`gmath.default_device`: without one, pass device='cpu').
     """
+    device = gmath.default_device(device)
     points = torch.as_tensor(np.asarray(points, np.float32), device=device)
     rho = torch.as_tensor(np.asarray(rho, np.float32), device=device).reshape(-1, 1)
     n = points.shape[0]

@@ -6,6 +6,10 @@ per `csrc/*.cu` file, all started together, compiles each to an object for
 directory under the checkout's `build/` keyed by a hash of the sources and
 flags, so an edited kernel is never served stale. There is no fallback: a
 missing `nvcc` or a failed build raises.
+
+`KERNELS` registers every kernel of the port (its source, the TPU kernel it
+replaces, its launch count); the wrappers in `ops/fused*.py` launch through
+it and check their tensors with `check_tensor`.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,6 +40,8 @@ SIGNATURES = {
     "rsort_bwd": [_P] * 8 + [_I] * 13 + [_P],
     "analytic_fwd": [_P] * 8 + [_I] * 12 + [_P],
     "analytic_bwd": [_P] * 9 + [_I] * 13 + [_P],
+    "field_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "field_bwd": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -122,3 +130,75 @@ def error_string(code: int) -> str:
     lib.nlos_cuda_error_string.restype = ctypes.c_char_p
     lib.nlos_cuda_error_string.argtypes = [ctypes.c_int]
     return lib.nlos_cuda_error_string(code).decode()
+
+
+# --- kernel registry ----------------------------------------------------------
+
+_JAX = "nlos_gaussian_renderer_tpu/ops"
+_SRC = "nlos_gaussian_renderer_tpu_torch/csrc"
+
+
+class Kernel:
+    """A CUDA kernel of the port: where its source lives, which TPU kernel
+    it replaces, and how many times it was launched."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, *args):
+        fn = getattr(library(), self.name)
+        stream = torch.cuda.current_stream().cuda_stream
+        self.launches += 1
+        err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {err} ({error_string(err)})")
+
+
+KERNELS = {
+    k.name: k for k in (
+        Kernel("cull_reduce", f"{_SRC}/cull_reduce.cu", f"{_JAX}/fused_rsort.py:630"),
+        Kernel("build_work_lists", f"{_SRC}/build_work_lists.cu",
+               f"{_JAX}/fused_rsort.py:522"),
+        Kernel("rsort_fwd", f"{_SRC}/rsort_fwd.cu", f"{_JAX}/fused_rsort.py:1243"),
+        Kernel("rsort_bwd", f"{_SRC}/rsort_bwd.cu", f"{_JAX}/fused_rsort.py:1304"),
+        Kernel("analytic_fwd", f"{_SRC}/analytic_fwd.cu", f"{_JAX}/fused_analytic.py:258"),
+        Kernel("analytic_bwd", f"{_SRC}/analytic_bwd.cu", f"{_JAX}/fused_analytic.py:340"),
+        Kernel("field_fwd", f"{_SRC}/field_fwd.cu", f"{_JAX}/fused.py:71"),
+        Kernel("field_bwd", f"{_SRC}/field_bwd.cu", f"{_JAX}/fused.py:90"),
+    )
+}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape=None):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `shape`)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def on_cpu(*ts) -> bool:
+    """True when every tensor is on the CPU: the wrappers then run their
+    plain versions. CUDA tensors go to the kernel (any other device is
+    refused there)."""
+    return all(t.device.type == "cpu" for t in ts)

@@ -1,10 +1,34 @@
-"""Tiled sample layout shared by the work-list kernels.
+"""Tile-sparse Gaussian field ('pallas' tile backend) and the tiled sample
+layout shared with the work-list kernels.
 
-Port of the tiling half of `nlos_gaussian_renderer_tpu/ops/fused.py`
-(`_tile_points_centered_direct_pts`, `tile_points_centered_direct_t`,
-`untile_field_t`). Tiles are ordered (r_t, theta_t, phi_t) and samples
-within a tile (r, theta, phi); monomials are centred at each tile's sample
-centroid, which keeps the f32 quadratic form well conditioned.
+Port of `nlos_gaussian_renderer_tpu/ops/fused.py`. One render of one scan
+point through the tile backend:
+
+  1. **Cull** (`cull_tiles`): each Gaussian's 3-sigma sphere is projected to
+     a (theta, phi, r) footprint around the scan point, and every
+     (r, theta, phi) tile it can touch is marked.
+  2. **Compact**: per tile, the ids of its Gaussians in ascending order,
+     into a list of static capacity `k_max` (`CompactTiles`; a tile with
+     more Gaussians than that is truncated and reported in `overflowed`).
+  3. **Gather** (`take_rows`): forms and channel weights ride one row gather
+     into the (T, k_max, 10 + C) per-tile lists; its backward is one
+     `index_add_`.
+  4. **Field** (`FusedField`): kernel K7 (`field_fwd`) sums each sample's
+     tile list, kernel K8 (`field_bwd`) gives the lists' cotangents.
+
+The tile backend evaluates the quadratic form UNCENTRED (`tile_points`, the
+function JAX computes): terms of ~(|x| / sigma)^2 cancel, so the plain
+versions and the kernels spell the form in one fixed order (`quad_form`,
+`quad` in `csrc/common.cuh`). Each kernel wrapper launches its CUDA kernel
+for CUDA tensors and raises on anything it cannot take; for CPU tensors it
+runs the plain PyTorch version beside it. The JAX `TileSpec`'s TPU block
+sizes (`a_sub`, `g_tile`, `precision`) are not ported: the CUDA kernels
+choose their own blocking.
+
+The tiling helpers of the work-list kernels (`tile_points_centered_direct_t`,
+`untile_field_t`) live here too: tiles ordered (r_t, theta_t, phi_t),
+samples within a tile (r, theta, phi), monomials centred at each tile's
+sample centroid.
 """
 
 from __future__ import annotations
@@ -14,16 +38,195 @@ from typing import NamedTuple
 import torch
 
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+from nlos_gaussian_renderer_tpu_torch.ops.cuda_build import (
+    KERNELS,
+    check_tensor,
+    on_cpu,
+    ptr,
+)
 
 FDIM = gmath.QUADRATIC_DIM  # 10
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _topk_compaction(g: int, n_tiles: int) -> bool:
+    """The JAX package's compaction selector: `lax.top_k` (pad slots hold
+    real ids) above 1e6 (Gaussian, tile) pairs, a cumsum scatter (pad slots
+    hold 0) below. `cull_tiles` fills its pad slots the same way."""
+    return g * n_tiles > 1_000_000
+
+
 class TileSpec(NamedTuple):
-    """Static tiling of the (r, theta, phi) sample grid."""
+    """Static tiling of the (r, theta, phi) sample grid and the cull's
+    capacity; the JAX `TileSpec`'s fields and defaults less its TPU block
+    sizes."""
 
     t_theta: int = 8
     t_phi: int = 16
     t_r: int = 64
+    k_max: int = 2048  # per-tile Gaussian capacity
+    sigma_cull: float = 3.0
+    margin: float = 1.1  # safety factor on angular footprints
+
+
+class CompactTiles(NamedTuple):
+    """Per-tile compacted Gaussian lists of one cull."""
+
+    indices: torch.Tensor  # (T, k_max) int32 Gaussian ids, ascending prefix
+    counts: torch.Tensor  # (T,) int32 valid ids per tile (<= k_max)
+    slot_valid: torch.Tensor  # (T, k_max) float32 1/0
+    overflowed: torch.Tensor  # () bool, any tile truncated
+
+
+def tile_grid_dims(ns: int, num_r: int, spec: TileSpec):
+    """(n_theta_tiles, n_phi_tiles, n_r_tiles) for an (ns, ns, num_r) grid."""
+    return _cdiv(ns, spec.t_theta), _cdiv(ns, spec.t_phi), _cdiv(num_r, spec.t_r)
+
+
+# --- cull + compact ------------------------------------------------------------
+
+
+def _interval_tile_overlap(lo, hi, axis_vals, tile_size: int, n_tiles: int):
+    """(G, n_tiles) bool: does [lo, hi] meet each tile's span of the
+    monotonic axis? Padded tiles repeat the last value (degenerate, still
+    correct bounds)."""
+    pad = n_tiles * tile_size - axis_vals.shape[0]
+    av = torch.cat([axis_vals, axis_vals[-1:].expand(pad)])
+    tiles = av.reshape(n_tiles, tile_size)
+    t_lo = torch.minimum(tiles[:, 0], tiles[:, -1])
+    t_hi = torch.maximum(tiles[:, 0], tiles[:, -1])
+    return (lo[:, None] <= t_hi[None, :]) & (hi[:, None] >= t_lo[None, :])
+
+
+def angular_footprints(means, scales, alive, cam, theta, phi, r, spec,
+                       scaling_modifier: float = 1.0):
+    """Per-Gaussian (d, radius, m_th, m_ph, in_window) footprint geometry of
+    both culls (`spec` is a `TileSpec` or an `RSortSpec`); m_th (G, n_tt) /
+    m_ph (G, n_pt) mark the tile rows the 3-sigma cull sphere can touch (a
+    contiguous interval per axis). Dead Gaussians get radius -1 and empty
+    footprints."""
+    ns = theta.shape[0]
+    n_tt = _cdiv(ns, spec.t_theta)
+    n_pt = _cdiv(ns, spec.t_phi)
+    pi = torch.pi
+
+    sph = gmath.cartesian_to_spherical(means - cam[None, :])
+    d = torch.clamp(sph[:, 0], min=1e-9)
+    radius = spec.sigma_cull * scaling_modifier * torch.amax(scales, dim=-1) * spec.margin
+    radius = torch.where(alive > 0.5, radius, -1.0)
+
+    alpha = torch.arcsin(torch.clamp(radius / d, -1.0, 1.0))
+    th_lo, th_hi = sph[:, 1] - alpha, sph[:, 1] + alpha
+    sin_min = torch.clamp(
+        torch.minimum(
+            torch.sin(torch.clamp(th_lo, 0.0, pi)),
+            torch.sin(torch.clamp(th_hi, 0.0, pi)),
+        ),
+        min=1e-3,
+    )
+    phi_ratio = radius / (d * sin_min)
+    dphi = torch.arcsin(torch.clamp(phi_ratio, -1.0, 1.0))
+    ph_lo, ph_hi = sph[:, 2] - dphi, sph[:, 2] + dphi
+    # Degenerate footprints cover everything: the sphere contains the scan
+    # point, the cone wraps a pole, or the phi window crosses the +-pi seam.
+    full_th = (radius >= d) & (radius >= 0.0)
+    full_ph = (
+        full_th | (phi_ratio >= 1.0) | (ph_lo < -pi) | (ph_hi > pi)
+    ) & (radius >= 0.0)
+
+    m_th = _interval_tile_overlap(th_lo, th_hi, theta, spec.t_theta, n_tt) | full_th[:, None]
+    m_ph = _interval_tile_overlap(ph_lo, ph_hi, phi, spec.t_phi, n_pt) | full_ph[:, None]
+    in_window = (d - radius <= r[-1]) & (d + radius >= r[0]) & (radius >= 0.0)
+    return d, radius, m_th, m_ph, in_window
+
+
+def compact_tiles(mask, k_max: int, topk_fill: bool) -> CompactTiles:
+    """(G, T) bool tile membership -> per-tile lists of the members' ids in
+    ascending order, truncated at `k_max`.
+
+    One stable sort of each tile's 0/1 key puts its members first in id
+    order (the order `lax.top_k` gives ties) and its non-members after them.
+    `topk_fill` keeps those non-member ids in the pad slots, as JAX's top_k
+    branch does; otherwise pad slots are 0, as its scatter branch writes."""
+    g = mask.shape[0]
+    raw_counts = mask.sum(dim=0, dtype=torch.int32)
+    k_cap = min(k_max, g)
+    key = (~mask).T.to(torch.uint8)
+    idx = torch.sort(key, dim=1, stable=True).indices[:, :k_cap].to(torch.int32)
+    if k_cap < k_max:
+        idx = torch.nn.functional.pad(idx, (0, k_max - k_cap))
+    counts = torch.clamp(raw_counts, max=k_max)
+    slot_valid = torch.arange(k_max, device=mask.device)[None, :] < counts[:, None]
+    if not topk_fill:
+        idx = torch.where(slot_valid, idx, 0)
+    return CompactTiles(
+        indices=idx,
+        counts=counts,
+        slot_valid=slot_valid.to(torch.float32),
+        overflowed=torch.any(raw_counts > k_max),
+    )
+
+
+@torch.no_grad()
+def cull_tiles(means, scales, alive, cam, theta, phi, r, spec: TileSpec,
+               scaling_modifier: float = 1.0) -> CompactTiles:
+    """Project the Gaussians' bounding spheres to (theta, phi, r) footprints
+    and build the per-tile compact lists. Tiles are ordered
+    (r_t, theta_t, phi_t); the cull carries no gradient."""
+    ns = theta.shape[0]
+    n_tt, n_pt, n_rt = tile_grid_dims(ns, r.shape[0], spec)
+    d, radius, m_th, m_ph, _ = angular_footprints(
+        means, scales, alive, cam, theta, phi, r, spec, scaling_modifier
+    )
+    m_r = _interval_tile_overlap(d - radius, d + radius, r, spec.t_r, n_rt)
+    mask = (
+        m_r[:, :, None, None]
+        & m_th[:, None, :, None]
+        & m_ph[:, None, None, :]
+        & (radius >= 0.0)[:, None, None, None]
+    )
+    g = means.shape[0]
+    n_tiles = n_rt * n_tt * n_pt
+    return compact_tiles(mask.reshape(g, n_tiles), spec.k_max,
+                         _topk_compaction(g, n_tiles))
+
+
+# --- tiled sample layout ---------------------------------------------------------
+
+
+def tile_coords(points, ns: int, num_r: int, spec: TileSpec,
+                n_tt: int, n_pt: int, n_rt: int):
+    """(num_r, ns, ns, 3) world points -> (T, S, 3) per-tile sample coords,
+    tiles (r_t, theta_t, phi_t), samples within a tile (r, theta, phi).
+    Padded samples are the origin (zero), as in JAX."""
+    pr = n_rt * spec.t_r - num_r
+    pt = n_tt * spec.t_theta - ns
+    pp = n_pt * spec.t_phi - ns
+    pts = torch.nn.functional.pad(points, (0, 0, 0, pp, 0, pt, 0, pr))
+    pts = pts.reshape(
+        n_rt, spec.t_r, n_tt, spec.t_theta, n_pt, spec.t_phi, 3
+    ).permute(0, 2, 4, 1, 3, 5, 6)
+    return pts.reshape(n_rt * n_tt * n_pt, spec.t_r * spec.t_theta * spec.t_phi, 3)
+
+
+def tile_points(points, ns: int, num_r: int, spec: TileSpec,
+                n_tt: int, n_pt: int, n_rt: int):
+    """(num_r, ns, ns, 3) world points -> (T, S, 10) uncentred monomials."""
+    return gmath.point_monomials(tile_coords(points, ns, num_r, spec, n_tt, n_pt, n_rt))
+
+
+def untile_field(out, ns: int, num_r: int, spec: TileSpec,
+                 n_tt: int, n_pt: int, n_rt: int):
+    """(T, S, C) tiled field -> (num_r, ns, ns, C)."""
+    c = out.shape[-1]
+    full = out.reshape(
+        n_rt, n_tt, n_pt, spec.t_r, spec.t_theta, spec.t_phi, c
+    ).permute(0, 3, 1, 4, 2, 5, 6)
+    full = full.reshape(n_rt * spec.t_r, n_tt * spec.t_theta, n_pt * spec.t_phi, c)
+    return full[:num_r, :ns, :ns]
 
 
 def _pad_axis(v, tile: int, n_tiles: int):
@@ -64,7 +267,7 @@ def _tile_points_centered_direct_pts(theta, phi, r, cam, spec: TileSpec,
 def tile_points_centered_direct_t(theta, phi, r, cam, spec: TileSpec,
                                   n_tt: int, n_pt: int, n_rt: int):
     """(xfeat_t (T, 10, S) centred monomial rows, centers (T, 3)) with
-    samples on the minor axis — the kernels' layout."""
+    samples on the minor axis — the work-list kernels' layout."""
     xf, centers = _tile_points_centered_direct_pts(
         theta, phi, r, cam, spec, n_tt, n_pt, n_rt
     )
@@ -90,3 +293,187 @@ def untile_field_t(out, ns: int, num_r: int, spec: TileSpec,
         n_rt * spec.t_r, n_tt * spec.t_theta, n_pt * spec.t_phi, c
     )
     return full[:num_r, :ns, :ns]
+
+
+# --- gather -----------------------------------------------------------------------
+
+
+class TakeRows(torch.autograd.Function):
+    """`table[idx]` for (T, K) row ids; the backward is one `index_add_` of
+    the (T*K) cotangent rows. Each tile's slots at or past its count go to
+    their own sentinel row past the table (as JAX's unique-scatter path
+    does): their cotangents are zero, and the repeated pad ids then add no
+    atomic traffic to one hot row."""
+
+    @staticmethod
+    def forward(ctx, table, idx, counts):
+        ctx.save_for_backward(idx, counts)
+        ctx.n_rows = table.shape[0]
+        return table[idx.long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, counts = ctx.saved_tensors
+        k = idx.shape[1]
+        slot = torch.arange(k, device=idx.device)[None, :]
+        dst = torch.where(slot < counts[:, None], idx.long(), ctx.n_rows + slot)
+        tail = grad.shape[2:]
+        buf = grad.new_zeros((ctx.n_rows + k,) + tuple(tail))
+        buf.index_add_(0, dst.reshape(-1), grad.reshape((-1,) + tuple(tail)))
+        return buf[:ctx.n_rows], None, None
+
+
+def take_rows(table, idx, counts):
+    """Differentiable row gather (T, K, ...) = table[idx] of per-tile lists
+    with `counts` (T,) valid slots (`TakeRows`)."""
+    return TakeRows.apply(table, idx, counts)
+
+
+# --- K7 / K8: the tile field ------------------------------------------------------
+
+
+def quad_form(g, x):
+    """<g, x> over the last (10) axis, broadcast over the others, summed in
+    index order with one rounding per operation: the order every field
+    kernel spells (`quad` in `csrc/common.cuh`), so kernel and plain version
+    agree to the last bit before the exp. The forms' terms cancel (~(|x| /
+    sigma)^2 uncentred, ~1e4 times the value tile-centred at a 1 m radial
+    tile); a matmul's summation order alone would move single samples' pdf
+    by percent at sigma 2 mm."""
+    m = g[..., 0] * x[..., 0]
+    for f in range(1, FDIM):
+        m = m + g[..., f] * x[..., f]
+    return m
+
+
+def _field_args(xfeat, gfeat, weights, counts):
+    t, a, fdim = xfeat.shape
+    k = gfeat.shape[1]
+    c = weights.shape[2]
+    if fdim != FDIM or not 1 <= c <= 2:
+        raise ValueError(f"xfeat {tuple(xfeat.shape)} / {c} channels not supported")
+    check_tensor(xfeat, "xfeat", torch.float32)
+    check_tensor(gfeat, "gfeat", torch.float32, (t, k, FDIM))
+    check_tensor(weights, "weights", torch.float32, (t, k, c))
+    check_tensor(counts, "counts", torch.int32, (t,))
+    return t, a, k, c
+
+
+def field_fwd(xfeat, gfeat, weights, counts):
+    """Tile field forward (K7): (T, A, C) f32 with
+
+        out[t, a, c] = sum_{k < counts[t]} weights[t, k, c]
+                       * exp(-1/2 * max(<xfeat[t, a], gfeat[t, k]>, 0)).
+
+    xfeat (T, A, 10) monomials; gfeat (T, K, 10) forms and weights (T, K, C)
+    per-tile lists; counts (T,) int32. Rows at or past a tile's count are
+    never read. A tile with count 0 gives zeros."""
+    if on_cpu(xfeat, gfeat, weights, counts):
+        return _field_fwd_plain(xfeat, gfeat, weights, counts)
+    t, a, k, c = _field_args(xfeat, gfeat, weights, counts)
+    out = torch.empty((t, a, c), dtype=torch.float32, device=xfeat.device)
+    KERNELS["field_fwd"].launch(ptr(xfeat), ptr(gfeat), ptr(weights), ptr(counts),
+                                ptr(out), t, a, k, c)
+    return out
+
+
+def field_bwd(xfeat, gfeat, weights, counts, go):
+    """Tile field backward (K8): (dg (T, K, 10), dw (T, K, C)) f32 with, for
+    rows k < counts[t] and p = exp(-1/2 max(m, 0)), m = <x[t, a], g[t, k]>,
+
+        dw[t, k, c] = sum_a p * go[t, a, c],
+        dg[t, k, :] = sum_a [m > 0] * (-1/2 p sum_c go[t, a, c] w[t, k, c]) * x[t, a, :],
+
+    and exactly zero on rows at or past the count. (The TPU kernel leaves
+    dw = sum p go in the pad rows of a partial 256-row block; the caller's
+    `slot_valid` mask zeroes those either way.)"""
+    if on_cpu(xfeat, gfeat, weights, counts, go):
+        return _field_bwd_plain(xfeat, gfeat, weights, counts, go)
+    t, a, k, c = _field_args(xfeat, gfeat, weights, counts)
+    check_tensor(go, "go", torch.float32, (t, a, c))
+    dg = torch.empty_like(gfeat)
+    dw = torch.empty_like(weights)
+    KERNELS["field_bwd"].launch(ptr(xfeat), ptr(gfeat), ptr(weights), ptr(counts),
+                                ptr(go), ptr(dg), ptr(dw), t, a, k, c)
+    return dg, dw
+
+
+_PLAIN_CHUNK_ELEMENTS = 1 << 24  # per (A, rows) temporary: 64 MiB
+
+
+def _row_chunks(n: int, a: int):
+    step = max(1, _PLAIN_CHUNK_ELEMENTS // max(a, 1))
+    return [(k0, min(k0 + step, n)) for k0 in range(0, n, step)]
+
+
+def _field_fwd_plain(xfeat, gfeat, weights, counts):
+    t, a, _ = xfeat.shape
+    out = xfeat.new_zeros((t, a, weights.shape[2]))
+    for ti, n in enumerate(counts.tolist()):
+        for k0, k1 in _row_chunks(min(n, gfeat.shape[1]), a):
+            m = quad_form(gfeat[ti, None, k0:k1], xfeat[ti, :, None])
+            out[ti] += torch.exp(-0.5 * torch.clamp(m, min=0.0)) @ weights[ti, k0:k1]
+    return out
+
+
+def _field_bwd_plain(xfeat, gfeat, weights, counts, go):
+    a = xfeat.shape[1]
+    c = weights.shape[2]
+    dg = torch.zeros_like(gfeat)
+    dw = torch.zeros_like(weights)
+    for ti, n in enumerate(counts.tolist()):
+        x, g_t = xfeat[ti], go[ti]
+        for k0, k1 in _row_chunks(min(n, gfeat.shape[1]), a):
+            m = quad_form(gfeat[ti, None, k0:k1], x[:, None])
+            p = torch.exp(-0.5 * torch.clamp(m, min=0.0))
+            w = weights[ti, k0:k1]
+            dw[ti, k0:k1] = p.T @ g_t
+            wg = g_t[:, 0:1] * w[None, :, 0]
+            for ci in range(1, c):
+                wg = wg + g_t[:, ci:ci + 1] * w[None, :, ci]
+            dm = torch.where(m > 0.0, -0.5 * p * wg, 0.0)
+            dg[ti, k0:k1] = dm.T @ x
+    return dg, dw
+
+
+class FusedField(torch.autograd.Function):
+    """`field_fwd` with the `field_bwd` backward. `xfeat` and `counts` get no
+    gradient (stop-gradient geometry, integral counts), as in JAX."""
+
+    @staticmethod
+    def forward(ctx, xfeat, gfeat, weights, counts):
+        ctx.save_for_backward(xfeat, gfeat, weights, counts)
+        return field_fwd(xfeat, gfeat, weights, counts)
+
+    @staticmethod
+    def backward(ctx, go):
+        xfeat, gfeat, weights, counts = ctx.saved_tensors
+        dg, dw = field_bwd(xfeat, gfeat, weights, counts, go.contiguous())
+        return None, dg, dw, None
+
+
+def fused_field(xfeat, gfeat, weights, counts):
+    """out[t, a, c] = sum_{k < counts[t]} weights[t, k, c] *
+    exp(-1/2 max(<xfeat[t, a], gfeat[t, k]>, 0)), differentiable in gfeat
+    and weights (`FusedField`)."""
+    return FusedField.apply(xfeat, gfeat, weights, counts)
+
+
+def fused_gaussian_field(gfeat, channel_weights, points, tiles: CompactTiles,
+                         spec: TileSpec):
+    """sum_g w_gc * pdf_g at every shell sample, tile-sparsely.
+
+    gfeat (G, 10), channel_weights (G, C), points (num_r, ns, ns, 3) (no
+    gradient). One combined [gfeat | w] gather, `w` masked by `slot_valid`,
+    the fused field, then the untiling. Returns ((num_r, ns, ns, C) field,
+    overflow flag)."""
+    num_r, ns = points.shape[0], points.shape[1]
+    n_tt, n_pt, n_rt = tile_grid_dims(ns, num_r, spec)
+    with torch.no_grad():
+        xfeat = tile_points(points, ns, num_r, spec, n_tt, n_pt, n_rt).contiguous()
+    gw = torch.cat([gfeat, channel_weights], dim=1)
+    gw_tiles = take_rows(gw, tiles.indices, tiles.counts)
+    g_tiles = gw_tiles[..., :FDIM].contiguous()
+    w_tiles = (gw_tiles[..., FDIM:] * tiles.slot_valid[..., None]).contiguous()
+    out = fused_field(xfeat, g_tiles, w_tiles, tiles.counts)
+    return untile_field(out, ns, num_r, spec, n_tt, n_pt, n_rt), tiles.overflowed

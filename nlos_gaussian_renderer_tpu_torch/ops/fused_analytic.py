@@ -33,28 +33,30 @@ import math
 import torch
 
 from nlos_gaussian_renderer_tpu_torch.ops.analytic import bin_edges_from_grid
+from nlos_gaussian_renderer_tpu_torch.ops.cuda_build import (
+    KERNELS,
+    check_tensor,
+    on_cpu,
+    ptr,
+)
 from nlos_gaussian_renderer_tpu_torch.ops.fused import (
     FDIM,
     TileSpec,
     _pad_axis,
     _tile_points_centered_direct_pts,
+    quad_form,
     untile_field_t,
 )
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import (
-    KERNELS,
     RSortGeometry,
     RSortSpec,
     RSortTiles,
     _cdiv,
     _center_transform,
     _center_transform_t,
-    _check,
     _field_table,
     _item_batches,
     _member_of,
-    _on_cpu,
-    _ptr,
-    _quad,
     _rect_bits,
 )
 
@@ -175,13 +177,13 @@ def _an_args(slab, aux, edges, table, words, lists, n_items, geo: RSortGeometry,
         raise ValueError("table/words rows must be whole g_tile blocks")
     if not 1 <= c <= 2 or f < FDIM + c:
         raise ValueError(f"channel count {c} with table width {f}")
-    _check(slab, "slab", torch.float32)
-    _check(aux, "aux", torch.float32, (t_tot, 8))
-    _check(edges, "edges", torch.float32, (geo.n_ch, geo.t_chunk + 1))
-    _check(table, "table", torch.float32)
-    _check(words, "words", torch.int32)
-    _check(lists, "work list", torch.int32)
-    _check(n_items, "n_items", torch.int32, (1,))
+    check_tensor(slab, "slab", torch.float32)
+    check_tensor(aux, "aux", torch.float32, (t_tot, 8))
+    check_tensor(edges, "edges", torch.float32, (geo.n_ch, geo.t_chunk + 1))
+    check_tensor(table, "table", torch.float32)
+    check_tensor(words, "words", torch.int32)
+    check_tensor(lists, "work list", torch.int32)
+    check_tensor(n_items, "n_items", torch.int32, (1,))
     b_t, b_p, _ = _rect_bits(geo.n_tt, geo.n_pt)
     return (t_tot, s_ang, geo.t_ang, geo.n_ch, geo.t_chunk, geo.g_tile, f, c,
             lists.shape[1], geo.n_pt, b_t, b_p)
@@ -199,14 +201,14 @@ def analytic_fwd(slab, aux, edges, table, words, fwd, n_items,
     [delta, t_c, x0, 0]; edges (n_ch, t_chunk + 1); table (KB*g_tile, F)
     rows [forms | weights (c) | ...]; words (KB*g_tile,) int32; fwd (6, W).
     Tiles with no items are zero."""
-    if _on_cpu(slab, aux, edges, table, words, fwd, n_items):
+    if on_cpu(slab, aux, edges, table, words, fwd, n_items):
         return _analytic_fwd_plain(slab, aux, edges, table, words, fwd, n_items, geo, c)
     args = _an_args(slab, aux, edges, table, words, fwd, n_items, geo, c)
     out = torch.zeros((slab.shape[0], c, geo.s_ang * geo.t_chunk),
                       dtype=torch.float32, device=slab.device)
     KERNELS["analytic_fwd"].launch(
-        _ptr(slab), _ptr(aux), _ptr(edges), _ptr(table), _ptr(words), _ptr(fwd),
-        _ptr(n_items), _ptr(out), *args,
+        ptr(slab), ptr(aux), ptr(edges), ptr(table), ptr(words), ptr(fwd),
+        ptr(n_items), ptr(out), *args,
     )
     return out
 
@@ -217,15 +219,15 @@ def analytic_bwd(slab, aux, edges, table, words, bwd, n_items, go,
     f32, nonzero only in the form and weight columns of member rows, by the
     closed-form moments over each item's bins [bl, bh]. Like the TPU kernel
     it ignores the qa and phi clamps of the forward."""
-    if _on_cpu(slab, aux, edges, table, words, bwd, n_items, go):
+    if on_cpu(slab, aux, edges, table, words, bwd, n_items, go):
         return _analytic_bwd_plain(slab, aux, edges, table, words, bwd, n_items, go,
                                    geo, c)
     args = _an_args(slab, aux, edges, table, words, bwd, n_items, geo, c)
-    _check(go, "go", torch.float32, (slab.shape[0], c, geo.s_ang * geo.t_chunk))
+    check_tensor(go, "go", torch.float32, (slab.shape[0], c, geo.s_ang * geo.t_chunk))
     dtable = torch.zeros_like(table)
     KERNELS["analytic_bwd"].launch(
-        _ptr(slab), _ptr(aux), _ptr(edges), _ptr(table), _ptr(words), _ptr(bwd),
-        _ptr(n_items), _ptr(go), _ptr(dtable), *args, table.shape[0] // geo.g_tile,
+        ptr(slab), ptr(aux), ptr(edges), ptr(table), ptr(words), ptr(bwd),
+        ptr(n_items), ptr(go), ptr(dtable), *args, table.shape[0] // geo.g_tile,
     )
     return dtable
 
@@ -259,7 +261,9 @@ def _an_items(slab, aux, edges, table, words, lists, i0, i1, geo, c):
     gp = _center_transform(tab[..., :FDIM], x0, y0, z0)
     memb = _member_of(words.reshape(-1, gt)[b], t[:, None], geo.n_tt, geo.n_pt)
     x = slab[tile]  # (nb, 30, S)
-    q = [_quad(gp, x[:, i * FDIM:(i + 1) * FDIM]) for i in range(3)]  # (nb, gt, S)
+    xt = x.transpose(1, 2)[:, None]  # (nb, 1, S, 30)
+    q = [quad_form(gp[:, :, None], xt[..., i * FDIM:(i + 1) * FDIM])
+         for i in range(3)]  # (nb, gt, S)
     bins = torch.arange(geo.t_chunk, device=slab.device)
     gate = (bins[None, :] >= bl[:, None]) & (bins[None, :] <= bh[:, None])
     s_e = edges[j] - a[:, 3:4]  # (nb, t_chunk + 1)

@@ -33,27 +33,25 @@ work-list words existed for the TPU's MXU, Mosaic and SMEM and are not ported.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
-from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
-from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+from nlos_gaussian_renderer_tpu_torch.ops.cuda_build import (
+    KERNELS,
+    check_tensor,
+    on_cpu,
+    ptr,
+)
 from nlos_gaussian_renderer_tpu_torch.ops.fused import (
     FDIM,
     TileSpec,
+    _cdiv,
+    angular_footprints,
+    quad_form,
     tile_points_centered_direct_t,
     untile_field_t,
 )
-
-_JAX_RSORT = "nlos_gaussian_renderer_tpu/ops/fused_rsort.py"
-_JAX_ANALYTIC = "nlos_gaussian_renderer_tpu/ops/fused_analytic.py"
-_CSRC = "nlos_gaussian_renderer_tpu_torch/csrc"
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def _rect_bits(n_tt: int, n_pt: int):
@@ -174,54 +172,6 @@ def _padded_rows(g: int, spec: RSortSpec) -> int:
     return _cdiv(g, spec.g_tile) * spec.g_tile + spec.max_groups * spec.g_tile
 
 
-def angular_footprints(means, scales, alive, cam, theta, phi, r,
-                       spec: RSortSpec, scaling_modifier: float = 1.0):
-    """Per-Gaussian (d, radius, m_th, m_ph, in_window) footprint geometry;
-    m_th (G, n_tt) / m_ph (G, n_pt) mark the tile rows the 3-sigma cull
-    sphere can touch (a contiguous interval per axis)."""
-    ns = theta.shape[0]
-    n_tt = _cdiv(ns, spec.t_theta)
-    n_pt = _cdiv(ns, spec.t_phi)
-    pi = torch.pi
-
-    sph = gmath.cartesian_to_spherical(means - cam[None, :])
-    d = torch.clamp(sph[:, 0], min=1e-9)
-    radius = spec.sigma_cull * scaling_modifier * torch.amax(scales, dim=-1) * spec.margin
-    radius = torch.where(alive > 0.5, radius, -1.0)
-
-    alpha = torch.arcsin(torch.clamp(radius / d, -1.0, 1.0))
-    th_lo, th_hi = sph[:, 1] - alpha, sph[:, 1] + alpha
-    sin_min = torch.clamp(
-        torch.minimum(
-            torch.sin(torch.clamp(th_lo, 0.0, pi)),
-            torch.sin(torch.clamp(th_hi, 0.0, pi)),
-        ),
-        min=1e-3,
-    )
-    phi_ratio = radius / (d * sin_min)
-    dphi = torch.arcsin(torch.clamp(phi_ratio, -1.0, 1.0))
-    ph_lo, ph_hi = sph[:, 2] - dphi, sph[:, 2] + dphi
-    # Degenerate footprints cover everything: the sphere contains the scan
-    # point, the cone wraps a pole, or the phi window crosses the +-pi seam.
-    full_th = (radius >= d) & (radius >= 0.0)
-    full_ph = (
-        full_th | (phi_ratio >= 1.0) | (ph_lo < -pi) | (ph_hi > pi)
-    ) & (radius >= 0.0)
-
-    def overlap(lo, hi, axis_vals, tile_size, n_tiles):
-        pad = n_tiles * tile_size - axis_vals.shape[0]
-        av = torch.cat([axis_vals, axis_vals[-1:].expand(pad)])
-        tiles = av.reshape(n_tiles, tile_size)
-        t_lo = torch.minimum(tiles[:, 0], tiles[:, -1])
-        t_hi = torch.maximum(tiles[:, 0], tiles[:, -1])
-        return (lo[:, None] <= t_hi[None, :]) & (hi[:, None] >= t_lo[None, :])
-
-    m_th = overlap(th_lo, th_hi, theta, spec.t_theta, n_tt) | full_th[:, None]
-    m_ph = overlap(ph_lo, ph_hi, phi, spec.t_phi, n_pt) | full_ph[:, None]
-    in_window = (d - radius <= r[-1]) & (d + radius >= r[0]) & (radius >= 0.0)
-    return d, radius, m_th, m_ph, in_window
-
-
 def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
                    scaling_modifier: float = 1.0):
     """(d, radius, word, valid_g, counts) for one camera; `word` is the
@@ -339,69 +289,6 @@ class WidePadGather(torch.autograd.Function):
 # --- kernels -----------------------------------------------------------------
 
 
-class _Kernel:
-    """A CUDA kernel of this module: where its source lives, which TPU
-    kernel it replaces, and how many times it was launched."""
-
-    def __init__(self, name: str, source: str, replaces: str):
-        self.name = name
-        self.source = source
-        self.replaces = replaces
-        self.launches = 0
-
-    def launch(self, *args):
-        fn = getattr(cuda_build.library(), self.name)
-        stream = torch.cuda.current_stream().cuda_stream
-        self.launches += 1
-        err = fn(*args, ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(
-                f"{self.name}: CUDA error {err} ({cuda_build.error_string(err)})"
-            )
-
-
-KERNELS = {
-    k.name: k for k in (
-        _Kernel("cull_reduce", f"{_CSRC}/cull_reduce.cu", f"{_JAX_RSORT}:630"),
-        _Kernel("build_work_lists", f"{_CSRC}/build_work_lists.cu", f"{_JAX_RSORT}:522"),
-        _Kernel("rsort_fwd", f"{_CSRC}/rsort_fwd.cu", f"{_JAX_RSORT}:1243"),
-        _Kernel("rsort_bwd", f"{_CSRC}/rsort_bwd.cu", f"{_JAX_RSORT}:1304"),
-        _Kernel("analytic_fwd", f"{_CSRC}/analytic_fwd.cu", f"{_JAX_ANALYTIC}:258"),
-        _Kernel("analytic_bwd", f"{_CSRC}/analytic_bwd.cu", f"{_JAX_ANALYTIC}:340"),
-    )
-}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape=None):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _on_cpu(*ts) -> bool:
-    """True when every tensor is on the CPU; CUDA tensors go to the kernel
-    (any other device is refused there)."""
-    return all(t.device.type == "cpu" for t in ts)
-
-
 # K1 ---------------------------------------------------------------------------
 
 
@@ -414,21 +301,21 @@ def cull_reduce(words, lo, hi, r, n_tt: int, n_pt: int, total_bins: int):
     members' intervals, widened by half a bin and 1e-4 bin, holds r0 + a*dr.
     Empty pairs and pairs outside the bins encode (total_bins, -1).
     """
-    if _on_cpu(words, lo, hi, r):
+    if on_cpu(words, lo, hi, r):
         return _cull_reduce_plain(words, lo, hi, r, n_tt, n_pt, total_bins)
     kb, gt = words.shape
     t_ang = n_tt * n_pt
     b_t, b_p, _ = _rect_bits(n_tt, n_pt)
-    _check(words, "words", torch.int32)
-    _check(lo, "lo", torch.float32, (kb, gt))
-    _check(hi, "hi", torch.float32, (kb, gt))
-    _check(r, "r", torch.float32)
+    check_tensor(words, "words", torch.int32)
+    check_tensor(lo, "lo", torch.float32, (kb, gt))
+    check_tensor(hi, "hi", torch.float32, (kb, gt))
+    check_tensor(r, "r", torch.float32)
     if r.numel() < 2:
         raise ValueError("need at least two radial bins")
     abs_lo = torch.empty((kb, t_ang), dtype=torch.int32, device=words.device)
     abs_hi = torch.empty_like(abs_lo)
     KERNELS["cull_reduce"].launch(
-        _ptr(words), _ptr(lo), _ptr(hi), _ptr(r), _ptr(abs_lo), _ptr(abs_hi),
+        ptr(words), ptr(lo), ptr(hi), ptr(r), ptr(abs_lo), ptr(abs_hi),
         kb, gt, n_tt, n_pt, b_t, b_p, total_bins,
     )
     return abs_lo, abs_hi
@@ -468,11 +355,11 @@ def build_work_lists(abs_lo, abs_hi, n_ch: int, t_chunk: int, w: int):
     and has-work flags of the WRITTEN items. Only the first `w` items are
     written (overflow = n_raw > w); slots past them are zero.
     """
-    if _on_cpu(abs_lo, abs_hi):
+    if on_cpu(abs_lo, abs_hi):
         return _build_work_lists_plain(abs_lo, abs_hi, n_ch, t_chunk, w)
     kb, t_ang = abs_lo.shape
-    _check(abs_lo, "abs_lo", torch.int32)
-    _check(abs_hi, "abs_hi", torch.int32, (kb, t_ang))
+    check_tensor(abs_lo, "abs_lo", torch.int32)
+    check_tensor(abs_hi, "abs_hi", torch.int32, (kb, t_ang))
     dev = abs_lo.device
     i32 = dict(dtype=torch.int32, device=dev)
     bwd = torch.zeros((6, w), **i32)
@@ -483,9 +370,9 @@ def build_work_lists(abs_lo, abs_hi, n_ch: int, t_chunk: int, w: int):
     # Scratch: per-pair chunk offsets, then the (bucket, block) occupancy.
     scratch = torch.zeros((kb * t_ang + t_ang * n_ch * kb,), **i32)
     KERNELS["build_work_lists"].launch(
-        _ptr(abs_lo), _ptr(abs_hi), kb, t_ang, n_ch, t_chunk, w,
-        _ptr(bwd), _ptr(fwd), _ptr(n_raw), _ptr(tile_w), _ptr(blk_w),
-        _ptr(scratch),
+        ptr(abs_lo), ptr(abs_hi), kb, t_ang, n_ch, t_chunk, w,
+        ptr(bwd), ptr(fwd), ptr(n_raw), ptr(tile_w), ptr(blk_w),
+        ptr(scratch),
     )
     return bwd, fwd, n_raw, tile_w, blk_w
 
@@ -611,12 +498,12 @@ def _field_args(xfeat, centers, table, words, lists, n_items, geo, c):
         raise ValueError("table/words rows must be whole g_tile blocks")
     if not 1 <= c <= 2 or f < FDIM + c:
         raise ValueError(f"channel count {c} with table width {f}")
-    _check(xfeat, "xfeat", torch.float32)
-    _check(centers, "centers", torch.float32, (t_tot, 3))
-    _check(table, "table", torch.float32)
-    _check(words, "words", torch.int32)
-    _check(lists, "work list", torch.int32)
-    _check(n_items, "n_items", torch.int32, (1,))
+    check_tensor(xfeat, "xfeat", torch.float32)
+    check_tensor(centers, "centers", torch.float32, (t_tot, 3))
+    check_tensor(table, "table", torch.float32)
+    check_tensor(words, "words", torch.int32)
+    check_tensor(lists, "work list", torch.int32)
+    check_tensor(n_items, "n_items", torch.int32, (1,))
     b_t, b_p, _ = _rect_bits(geo.n_tt, geo.n_pt)
     return (t_tot, s, geo.s_ang, geo.t_ang, geo.n_ch, geo.g_tile, f, c,
             lists.shape[1], geo.n_pt, b_t, b_p)
@@ -636,14 +523,14 @@ def rsort_fwd(xfeat, centers, table, words, fwd, n_items, geo: RSortGeometry,
     gate_bins - 1 bins beyond [bl, bh]; their terms are below the cull
     cutoff, so covering exactly [bl, bh] is the same field.
     """
-    if _on_cpu(xfeat, centers, table, words, fwd, n_items):
+    if on_cpu(xfeat, centers, table, words, fwd, n_items):
         return _rsort_fwd_plain(xfeat, centers, table, words, fwd, n_items, geo, c)
     args = _field_args(xfeat, centers, table, words, fwd, n_items, geo, c)
     out = torch.zeros((xfeat.shape[0], c, xfeat.shape[2]), dtype=torch.float32,
                       device=xfeat.device)
     KERNELS["rsort_fwd"].launch(
-        _ptr(xfeat), _ptr(centers), _ptr(table), _ptr(words), _ptr(fwd),
-        _ptr(n_items), _ptr(out), *args,
+        ptr(xfeat), ptr(centers), ptr(table), ptr(words), ptr(fwd),
+        ptr(n_items), ptr(out), *args,
     )
     return out
 
@@ -658,30 +545,17 @@ def rsort_bwd(xfeat, centers, table, words, bwd, n_items, go, geo: RSortGeometry
     `_center_transform_t`, and dw_c = Z_c[:, 9], both masked by membership.
     Like the TPU kernel it drops the m > 0 clamp mask on the cotangent.
     """
-    if _on_cpu(xfeat, centers, table, words, bwd, n_items, go):
+    if on_cpu(xfeat, centers, table, words, bwd, n_items, go):
         return _rsort_bwd_plain(xfeat, centers, table, words, bwd, n_items, go, geo, c)
     args = _field_args(xfeat, centers, table, words, bwd, n_items, geo, c)
-    _check(go, "go", torch.float32, (xfeat.shape[0], c, xfeat.shape[2]))
+    check_tensor(go, "go", torch.float32, (xfeat.shape[0], c, xfeat.shape[2]))
     dtable = torch.zeros_like(table)
     kb = table.shape[0] // geo.g_tile
     KERNELS["rsort_bwd"].launch(
-        _ptr(xfeat), _ptr(centers), _ptr(table), _ptr(words), _ptr(bwd),
-        _ptr(n_items), _ptr(go), _ptr(dtable), *args, kb,
+        ptr(xfeat), ptr(centers), ptr(table), ptr(words), ptr(bwd),
+        ptr(n_items), ptr(go), ptr(dtable), *args, kb,
     )
     return dtable
-
-
-def _quad(g, x):
-    """(nb, gt, 10) forms . (nb, 10, S) monomials -> (nb, gt, S), summed in
-    index order with one rounding per operation — the order the kernels
-    spell out, so kernel and plain version agree to the last bit before the
-    exp. (The tile-centred form still cancels terms ~1e4 times its value at
-    a 1 m radial tile; a matmul's summation order alone moves the field by
-    ~5e-4 relative.)"""
-    q = g[..., 0, None] * x[:, None, 0, :]
-    for f in range(1, FDIM):
-        q = q + g[..., f, None] * x[:, None, f, :]
-    return q
 
 
 _PLAIN_BATCH_ELEMENTS = 1 << 25  # per (batch, g_tile, S) temporary: 128 MiB
@@ -719,7 +593,8 @@ def _rsort_fwd_plain(xfeat, centers, table, words, fwd, n_items, geo, c):
         tile, _, g, w, memb, x, gate, _ = _items(
             xfeat, centers, table, words, fwd, i0, i1, geo, c
         )
-        p = torch.exp(torch.clamp(-0.5 * _quad(g, x), max=0.0)) * gate[:, None, :]
+        q = quad_form(g[:, :, None], x.transpose(1, 2)[:, None])  # (nb, gt, S)
+        p = torch.exp(torch.clamp(-0.5 * q, max=0.0)) * gate[:, None, :]
         wm = (w * memb[..., None]).transpose(1, 2)  # (nb, C, gt)
         out.index_add_(0, tile, wm @ p)
     return out
@@ -734,7 +609,8 @@ def _rsort_bwd_plain(xfeat, centers, table, words, bwd, n_items, go, geo, c):
         tile, (x0, y0, z0), g, w, memb, x, gate, b = _items(
             xfeat, centers, table, words, bwd, i0, i1, geo, c
         )
-        p = torch.exp(torch.clamp(-0.5 * _quad(g, x), max=0.0)) * gate[:, None, :]
+        q = quad_form(g[:, :, None], x.transpose(1, 2)[:, None])  # (nb, gt, S)
+        p = torch.exp(torch.clamp(-0.5 * q, max=0.0)) * gate[:, None, :]
         gos = go[tile]
         zs = [p @ (gos[:, ci:ci + 1, :] * x).transpose(1, 2) for ci in range(c)]
         dgp = sum(-0.5 * w[..., ci:ci + 1] * zs[ci] for ci in range(c))

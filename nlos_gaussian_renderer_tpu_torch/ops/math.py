@@ -164,10 +164,27 @@ _BOX_SIGNS = np.array(
 )
 
 
+def default_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when it is None: the port's constructors
+    put host data on the card unless the caller asks for another device.
+    Without a CUDA device a call with no `device` raises; it never falls
+    back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to build these tensors on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def volume_box_points(volume_position, volume_size: float, device=None):
     """(8, 3) corners of the hidden-volume cube around `volume_position`
-    (in its float dtype; float32 for other input)."""
-    pos = torch.as_tensor(volume_position, device=device)
+    (in its float dtype; float32 for other input). A tensor input keeps its
+    device unless `device` is given; host data goes to `default_device`."""
+    if device is None and isinstance(volume_position, torch.Tensor):
+        device = volume_position.device
+    pos = torch.as_tensor(volume_position, device=default_device(device))
     if not pos.is_floating_point():
         pos = pos.to(torch.float32)
     signs = torch.as_tensor(_BOX_SIGNS, dtype=pos.dtype, device=pos.device)

@@ -1,11 +1,11 @@
 """Differentiable confocal transient rendering (PyTorch).
 
 Port of `nlos_gaussian_renderer_tpu/ops/render.py` for the `dense`,
-`analytic`, `pallas_rsort` and `pallas_analytic` backends, with no occlusion
-or aggregate occlusion (`netf` / `nlos-neus`). For one scan point it renders the time-of-flight
-histogram of the Gaussian scene by integrating the field over spherical
-shells: field -> * sin(theta)/r^2 -> * volume_y^2 -> sum over angles ->
-* dtheta * dphi.
+`analytic`, `pallas`, `pallas_rsort` and `pallas_analytic` backends, with no
+occlusion or aggregate occlusion (`netf` / `nlos-neus`). For one scan point
+it renders the time-of-flight histogram of the Gaussian scene by
+integrating the field over spherical shells: field -> * sin(theta)/r^2 ->
+* volume_y^2 -> sum over angles -> * dtheta * dphi.
 
 The dense field is exp(-0.5 * X10 @ G10^T) @ weights, optionally chunked
 over Gaussians with activation checkpointing (`gauss_chunk`), which is the
@@ -23,6 +23,11 @@ from torch.utils.checkpoint import checkpoint
 from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
 from nlos_gaussian_renderer_tpu_torch.ops.analytic import analytic_field_response
+from nlos_gaussian_renderer_tpu_torch.ops.fused import (
+    TileSpec,
+    cull_tiles,
+    fused_gaussian_field,
+)
 from nlos_gaussian_renderer_tpu_torch.ops.fused_analytic import analytic_gaussian_field
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import (
     RSortSpec,
@@ -35,20 +40,22 @@ from nlos_gaussian_renderer_tpu_torch.ops.sampling import (
     shell_grid,
 )
 
-BACKENDS = ("dense", "analytic", "pallas_rsort", "pallas_analytic")
+BACKENDS = ("dense", "analytic", "pallas", "pallas_rsort", "pallas_analytic")
 # Every backend name the JAX package accepts; any other maps to 'dense'.
 _JAX_BACKENDS = ("pallas", "pallas_rsort", "pallas_analytic", "pallas_dsort",
                  "analytic")
 RSORT_FAMILY = ("pallas_rsort", "pallas_analytic")
+KERNEL_BACKENDS = ("pallas",) + RSORT_FAMILY
 
 
 class RenderSettings(NamedTuple):
     """Static rendering configuration.
 
     `backend` keeps the JAX package's names: 'dense' (plain tensor ops),
-    'analytic' (closed-form erf sections, plain tensor ops), 'pallas_rsort'
-    and 'pallas_analytic' (the work-list kernels). The JAX package's other
-    backends ('pallas', 'pallas_dsort') are not ported yet and raise.
+    'analytic' (closed-form erf sections, plain tensor ops), 'pallas' (the
+    tile kernels K7/K8, capacity `tile_spec.k_max`), 'pallas_rsort' and
+    'pallas_analytic' (the work-list kernels, capacities in `rsort_spec`).
+    The JAX package's 'pallas_dsort' is not ported yet and raises.
     """
 
     num_sampling_points: int
@@ -60,6 +67,7 @@ class RenderSettings(NamedTuple):
     scaling_modifier: float = 1.0
     apply_volume_y2_factor: bool = True
     backend: str = "dense"
+    tile_spec: TileSpec = TileSpec()
     rsort_spec: RSortSpec = RSortSpec()
 
     @property
@@ -68,6 +76,12 @@ class RenderSettings(NamedTuple):
 
     @classmethod
     def from_config(cls, cfg) -> "RenderSettings":
+        tile_spec = TileSpec()
+        if getattr(cfg, "cull_tile", None) is not None:
+            tt, tp, tr = cfg.cull_tile
+            tile_spec = tile_spec._replace(t_theta=tt, t_phi=tp, t_r=tr)
+        if getattr(cfg, "cull_k_max", None) is not None:
+            tile_spec = tile_spec._replace(k_max=cfg.cull_k_max)
         # rsort radial schedule: ONE chunk covering the whole bin window
         # (rounded up to the gate size), which keeps w_max at O(blocks x
         # tiles).
@@ -86,6 +100,7 @@ class RenderSettings(NamedTuple):
             scaling_modifier=cfg.scaling_modifier,
             apply_volume_y2_factor=cfg.apply_volume_y2_factor,
             backend=cfg.renderer if cfg.renderer in _JAX_BACKENDS else "dense",
+            tile_spec=tile_spec,
             rsort_spec=RSortSpec(t_chunk=t_chunk, gate_bins=gate_bins),
         )
 
@@ -186,13 +201,22 @@ def field_response(scene: GaussianScene, points, camera_pos, c, delta_t,
 
 def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
                           c, delta_t, active_sh_degree, settings: RenderSettings):
-    """`field_response` through the rsort cull and the work-list kernels of
-    the settings' backend ('pallas_rsort': sampled field, 'pallas_analytic':
-    exact per-bin integrals). Returns ((A,) response, overflow flag)."""
-    if settings.backend not in RSORT_FAMILY:
+    """`field_response` through the kernels of the settings' backend:
+    'pallas' (tile cull, K7/K8), 'pallas_rsort' (rsort cull, sampled field)
+    or 'pallas_analytic' (rsort cull, exact per-bin integrals). Returns
+    ((A,) response, overflow flag)."""
+    if settings.backend not in KERNEL_BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
     gfeat = scene.quadratic_form(settings.scaling_modifier)
+    if settings.backend == "pallas":
+        tiles = cull_tiles(scene.means, scene.scales, scene.alive, camera_pos,
+                           grid.theta, grid.phi, grid.r, settings.tile_spec,
+                           settings.scaling_modifier)
+        field, overflow = fused_gaussian_field(gfeat, w, grid.points.detach(), tiles,
+                                               settings.tile_spec)
+        both = field.reshape(-1, w.shape[1])
+        return _composite(both, c, delta_t, settings), overflow
     spec = settings.rsort_spec
     tiles = rsort_cull(
         scene.means, scene.scales, scene.alive, camera_pos, grid.theta,
@@ -212,15 +236,26 @@ def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
 @torch.no_grad()
 def check_culling_capacity(scene: GaussianScene, camera_pos, box_points, c,
                            delta_t, settings: RenderSettings) -> dict:
-    """Cull one representative scan point and report whether the rsort
-    family's static capacities saturate: {'backend', 'overflowed', ...}.
-    Backends without capacities report no overflow."""
+    """Cull one representative scan point and report whether the kernel
+    backends' static capacities saturate: {'backend', 'overflowed', ...}
+    (the tile backend's `k_max`, the rsort family's `w_max` and
+    `max_groups`). Backends without capacities report no overflow."""
     if settings.backend not in BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
-    if settings.backend not in RSORT_FAMILY:
+    if settings.backend not in KERNEL_BACKENDS:
         return {"backend": settings.backend, "overflowed": False}
     grid = shell_grid(camera_pos, box_points, settings.num_sampling_points,
                       settings.start, settings.end, c, delta_t)
+    if settings.backend == "pallas":
+        t = cull_tiles(scene.means, scene.scales, scene.alive, camera_pos,
+                       grid.theta, grid.phi, grid.r, settings.tile_spec,
+                       settings.scaling_modifier)
+        return {
+            "backend": "pallas",
+            "overflowed": bool(t.overflowed),
+            "max_count": int(torch.max(t.counts)),
+            "k_max": settings.tile_spec.k_max,
+        }
     spec = settings.rsort_spec
     t = rsort_cull(scene.means, scene.scales, scene.alive, camera_pos,
                    grid.theta, grid.phi, grid.r, spec, settings.scaling_modifier)
@@ -241,8 +276,9 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
                      gauss_chunk: Optional[int] = None):
     """Render (transient (num_r, ns^2), histogram (num_r,), overflow ()).
 
-    `overflow` is True when the rsort work list saturated (contributions
-    were dropped); it is constant False on the dense and analytic backends.
+    `overflow` is True when a kernel backend's static capacity saturated (a
+    tile list or the rsort work list; contributions were dropped); it is
+    constant False on the dense and analytic backends.
     `gauss_chunk` chunks their sum over Gaussians.
     """
     if settings.backend not in BACKENDS:
@@ -252,7 +288,7 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
         settings.end, c, delta_t,
     )
     overflow = torch.zeros((), dtype=torch.bool, device=camera_pos.device)
-    if settings.backend in RSORT_FAMILY:
+    if settings.backend in KERNEL_BACKENDS:
         out, overflow = field_response_pallas(
             scene, grid, camera_pos, c, delta_t, active_sh_degree, settings
         )

@@ -45,7 +45,7 @@ VOL = np.array([0.0, 1.0, 0.0], np.float32)
 C, DT = 1.0, 0.01
 CAM = np.array([0.05, 0.0, -0.1], np.float32)
 J_BOX = jm.volume_box_points(jnp.asarray(VOL), 0.6)
-T_BOX = tm.volume_box_points(VOL, 0.6)
+T_BOX = tm.volume_box_points(VOL, 0.6, device="cpu")
 SPEC_KW = dict(t_theta=4, t_phi=8, t_chunk=8, g_tile=32, w_max=256, max_groups=16)
 
 

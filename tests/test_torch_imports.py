@@ -40,4 +40,5 @@ def test_port_has_the_mirrored_modules():
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
-                       "rsort_bwd.cu", "analytic_fwd.cu", "analytic_bwd.cu"}
+                       "rsort_bwd.cu", "analytic_fwd.cu", "analytic_bwd.cu",
+                       "field_fwd.cu", "field_bwd.cu"}

@@ -1,20 +1,24 @@
-"""The six CUDA kernels against their plain PyTorch versions, on the card.
+"""The eight CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips (from its fixture) where no GPU is present.
 On the card: `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
 (the suite conftest imports jax, which the card's machine does not have).
-Shapes are the small ones of tests/test_torch_rsort.py, one and two
-channels, one and several radial chunks, and an overflowed work list.
-Tolerances: K1/K2 outputs exactly equal; K3 and K5 rel_l2 <= 1e-5; K4 and
-K6 rel_l2 <= 1e-4 (the kernels evaluate the forms and section terms in the
-plain versions' operation order; only the order of the sums over Gaussians,
-bins and samples differs)."""
+Shapes are the small ones of tests/test_torch_rsort.py and
+tests/test_torch_tile.py, one and two channels, one and several radial
+chunks, an overflowed work list, and tile lists with a zero count and a
+partial last 128-row block. Tolerances: K1/K2 outputs exactly equal; K3, K5
+and K7 rel_l2 <= 1e-5; K4, K6 and K8 rel_l2 <= 1e-4 (the kernels evaluate
+the forms and section terms in the plain versions' operation order; only
+the order of the sums over Gaussians, bins and samples differs); K8 rows at
+or past a tile's count exactly zero."""
 
 import numpy as np
 import pytest
 import torch
 
 from nlos_gaussian_renderer_tpu_torch.models.scene import scene_from_numpy
+from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+from nlos_gaussian_renderer_tpu_torch.ops import fused as tf
 from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
 from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
@@ -95,7 +99,7 @@ def test_cull_reduce_and_build_work_lists_equal_plain(dev, t_chunk, w_max):
     lo = t.table[:, x["n_gw"] + 1].reshape(kb, -1).contiguous()
     hi = t.table[:, x["n_gw"] + 2].reshape(kb, -1).contiguous()
     tb = geo.n_ch * spec.t_chunk
-    before = fr.launch_counts()
+    before = cuda_build.launch_counts()
     alo, ahi = fr.cull_reduce(words, lo, hi, x["grid"].r, geo.n_tt, geo.n_pt, tb)
     plo, phi = fr._cull_reduce_plain(words, lo, hi, x["grid"].r, geo.n_tt, geo.n_pt, tb)
     assert torch.equal(alo, plo) and torch.equal(ahi, phi)
@@ -103,7 +107,7 @@ def test_cull_reduce_and_build_work_lists_equal_plain(dev, t_chunk, w_max):
     ref = fr._build_work_lists_plain(alo, ahi, geo.n_ch, spec.t_chunk, w_max)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    after = fr.launch_counts()
+    after = cuda_build.launch_counts()
     assert after["cull_reduce"] == before["cull_reduce"] + 1
     assert after["build_work_lists"] == before["build_work_lists"] + 1
     assert bool(t.overflowed) == (w_max == 16)
@@ -137,7 +141,7 @@ def test_analytic_fwd_and_bwd_match_plain(dev, occ, t_chunk):
     t, geo, c = x["tiles"], x["geo"], x["c"]
     args = (*fa.analytic_operands(x["grid"], x["cam"], spec), t.table.detach().contiguous(),
             t.words.reshape(-1).contiguous())
-    before = fr.launch_counts()
+    before = cuda_build.launch_counts()
     out = fa.analytic_fwd(*args, t.fwd, t.n_items, geo, c)
     ref = fa._analytic_fwd_plain(*args, t.fwd, t.n_items, geo, c)
     assert out.shape == (geo.t_ang * geo.n_ch, c, geo.s_ang * spec.t_chunk)
@@ -149,22 +153,71 @@ def test_analytic_fwd_and_bwd_match_plain(dev, occ, t_chunk):
     rows = t.blk_has_work.repeat_interleave(spec.g_tile)
     assert dref.abs().max() > 0 and rel_l2(dt[rows], dref[rows]) <= 1e-4
     assert (dt[~rows] == 0).all() and (dt[:, fr.FDIM + c:] == 0).all()
-    after = fr.launch_counts()
+    after = cuda_build.launch_counts()
     for name in ("analytic_fwd", "analytic_bwd"):
         assert after[name] == before[name] + 1
 
 
-@pytest.mark.parametrize("backend", ["pallas_rsort", "pallas_analytic"])
+def _tile_inputs(dev, c, n=400, k_max=512):
+    """K7/K8 operands of one tile cull on `dev`: (xfeat, g, w, counts), the
+    last tile's count forced to 0 (its weights masked)."""
+    scene = scene_from_numpy(scene_np(n, 5), dev)
+    cam = torch.tensor([0.05, 0.0, -0.1], device=dev)
+    box = gmath.volume_box_points(VOL, 0.6, device=dev)
+    grid = shell_grid(cam, box, 8, 60, 140, C, DT)
+    spec = tf.TileSpec(t_theta=4, t_phi=8, t_r=16, k_max=k_max)
+    st = RenderSettings(num_sampling_points=8, start=60, end=140, occlusion=c == 2)
+    with torch.no_grad():
+        w = channel_weights(scene, cam, 1, st)
+        tiles = tf.cull_tiles(scene.means, scene.scales, scene.alive, cam, grid.theta,
+                              grid.phi, grid.r, spec)
+        dims = tf.tile_grid_dims(8, 80, spec)
+        xfeat = tf.tile_points(grid.points, 8, 80, spec, *dims).contiguous()
+        gw = tf.take_rows(torch.cat([scene.quadratic_form(), w], 1), tiles.indices,
+                           tiles.counts)
+        counts = tiles.counts.clone()
+        counts[-1] = 0
+        valid = torch.arange(k_max, device=dev)[None, :] < counts[:, None]
+        return (xfeat, gw[..., :tf.FDIM].contiguous(),
+                (gw[..., tf.FDIM:] * valid[..., None]).contiguous(), counts)
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_field_fwd_and_bwd_match_plain(dev, c):
+    xfeat, g, w, counts = _tile_inputs(dev, c)
+    cl = counts.tolist()
+    assert 0 in cl and any(n > 128 and n % 128 for n in cl), cl
+    before = cuda_build.launch_counts()
+    out = tf.field_fwd(xfeat, g, w, counts)
+    ref = tf._field_fwd_plain(xfeat, g, w, counts)
+    assert out.shape == (xfeat.shape[0], xfeat.shape[1], c)
+    assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    assert (out[-1] == 0).all()
+    go = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    dg, dw = tf.field_bwd(xfeat, g, w, counts, go)
+    rg, rw = tf._field_bwd_plain(xfeat, g, w, counts, go)
+    rows = torch.arange(g.shape[1], device=dev)[None, :] < counts[:, None]
+    assert rg[rows].abs().max() > 0 and rel_l2(dg[rows], rg[rows]) <= 1e-4
+    assert rel_l2(dw[rows], rw[rows]) <= 1e-4
+    assert (dg[~rows] == 0).all() and (dw[~rows] == 0).all()
+    after = cuda_build.launch_counts()
+    for name in ("field_fwd", "field_bwd"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_rsort", "pallas_analytic"])
 @pytest.mark.parametrize("occ", [False, True])
 def test_render_and_grads_on_card_match_cpu_plain(dev, occ, backend):
-    """The whole rsort-family render and backward on the card vs the CPU's
+    """The whole kernel-backend render and backward on the card vs the CPU's
     plain versions. The grid, forms and weights are computed by each device's own
     libm, whose last-ulp differences the f32 form amplifies (measured on an
     H100: histogram 1.0e-5, quaternion gradient 2.5e-4), so the bounds are
     1e-4 and 1e-3; the kernels themselves are held tighter above."""
     d = scene_np(48, 3)
     st = RenderSettings(num_sampling_points=8, start=60, end=140, occlusion=occ,
-                        backend=backend, rsort_spec=SPEC)
+                        backend=backend, rsort_spec=SPEC,
+                        tile_spec=tf.TileSpec(t_theta=4, t_phi=8, t_r=16, k_max=64))
     target = np.full(80, 0.1, np.float32)
     out = {}
     for device in ("cpu", dev):
@@ -203,3 +256,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fa.analytic_bwd(slab, aux, edges.cpu(), t.table.contiguous(), words, t.bwd,
                         t.n_items, torch.zeros((2 * geo.n_ch, 1, 256), device=dev), geo, 1)
+    xfeat, g, w, counts = _tile_inputs(dev, 1)
+    with pytest.raises(TypeError):
+        tf.field_fwd(xfeat, g, w, counts.long())
+    with pytest.raises(ValueError):
+        tf.field_fwd(xfeat, g, w.expand(-1, -1, 3).contiguous(), counts)
+    with pytest.raises(ValueError):
+        tf.field_bwd(xfeat, g, w, counts, torch.zeros_like(xfeat[..., :2]))

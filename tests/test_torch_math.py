@@ -74,7 +74,8 @@ class TestMath:
         close(tm.cartesian_to_spherical(t(PTS)), jm.cartesian_to_spherical(jnp.asarray(PTS)))
 
     def test_volume_box_points(self):
-        close(tm.volume_box_points(VOL, 0.6), jm.volume_box_points(jnp.asarray(VOL), 0.6))
+        close(tm.volume_box_points(VOL, 0.6, device="cpu"),
+              jm.volume_box_points(jnp.asarray(VOL), 0.6))
 
     def test_quadratic_form_and_monomials(self):
         gq = tm.gaussian_quadratic_form(t(MEANS), t(SCALES), t(QUATS))
@@ -95,7 +96,8 @@ class TestSamplingAndSchedule:
         cam = np.asarray(cam, np.float32)
         box_j = jm.volume_box_points(jnp.asarray(VOL), 0.6)
         gj = jsamp.shell_grid(jnp.asarray(cam), box_j, 8, 60, 140, 1.0, 0.01)
-        gt = tsamp.shell_grid(t(cam), tm.volume_box_points(VOL, 0.6), 8, 60, 140, 1.0, 0.01)
+        gt = tsamp.shell_grid(t(cam), tm.volume_box_points(VOL, 0.6, device="cpu"), 8, 60,
+                              140, 1.0, 0.01)
         for name in ("points", "r", "theta", "phi", "dtheta", "dphi",
                      "theta_min", "theta_max", "phi_min", "phi_max"):
             close(getattr(gt, name), getattr(gj, name))
@@ -136,7 +138,7 @@ class TestSceneAndData:
         js = jscene.init_scene(pts, rho, VOL - 0.3, VOL + 0.3, max_sh_degree=2,
                                capacity=16, knn_scale_init=False)
         ts = tscene.init_scene(pts, rho, VOL - 0.3, VOL + 0.3, max_sh_degree=2,
-                               capacity=16)
+                               capacity=16, device="cpu")
         for name in tscene.FIELD_NAMES:
             close(getattr(ts, name), getattr(js, name))
         assert ts.max_sh_degree == js.max_sh_degree == 2
@@ -167,9 +169,36 @@ class TestSceneAndData:
     def test_synthetic_scene_and_scan_grid(self):
         np.testing.assert_array_equal(tsyn.make_scan_grid(5, 7), jsyn.make_scan_grid(5, 7))
         js = jsyn.make_ground_truth_scene(np.random.default_rng(3), 20, VOL, 0.6)
-        ts = tsyn.make_ground_truth_scene(np.random.default_rng(3), 20, VOL, 0.6)
+        ts = tsyn.make_ground_truth_scene(np.random.default_rng(3), 20, VOL, 0.6,
+                                          device="cpu")
         for name in tscene.FIELD_NAMES:
             close(getattr(ts, name), getattr(js, name))
+
+
+DEFAULT_DEVICE_CONSTRUCTORS = {
+    "init_scene": lambda **kw: tscene.init_scene(
+        np.zeros((4, 3), np.float32), np.full((4, 1), 0.5, np.float32), VOL - 0.3,
+        VOL + 0.3, max_sh_degree=0, **kw).means,
+    "make_ground_truth_scene": lambda **kw: tsyn.make_ground_truth_scene(
+        np.random.default_rng(3), 4, VOL, 0.6, **kw).means,
+    "volume_box_points": lambda **kw: tm.volume_box_points(VOL, 0.6, **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(DEFAULT_DEVICE_CONSTRUCTORS))
+def test_constructors_default_to_the_card(name):
+    """With no `device`, numpy input goes to the CUDA card; without a card
+    the call raises rather than building on the CPU. Whether a card exists
+    is decided here, in the test body."""
+    make = DEFAULT_DEVICE_CONSTRUCTORS[name]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert make(device="cpu").device.type == "cpu"
+    # A tensor input keeps its device.
+    assert tm.volume_box_points(torch.as_tensor(VOL), 0.6).device.type == "cpu"
 
 
 def test_jax_runs_on_cpu():

@@ -50,7 +50,7 @@ VOL = np.array([0.0, 1.0, 0.0], np.float32)
 C, DT = 1.0, 0.01
 CAM = np.array([0.05, 0.0, -0.1], np.float32)
 J_BOX = jm.volume_box_points(jnp.asarray(VOL), 0.6)
-T_BOX = tm.volume_box_points(VOL, 0.6)
+T_BOX = tm.volume_box_points(VOL, 0.6, device="cpu")
 
 
 def scene_np(n=40, seed=0, sh_degree=1):
@@ -123,7 +123,7 @@ def _grads(d, occ, dtype):
         jg = {n: np.asarray(getattr(jg, n)) for n in PARAM_NAMES}
     ts = scene_from_numpy(d, "cpu").to(dtype)
     _, h, _ = render_transient(ts, torch.as_tensor(CAM.astype(np_dt)),
-                               tm.volume_box_points(VOL.astype(np_dt), 0.6), C, DT,
+                               tm.volume_box_points(VOL.astype(np_dt), 0.6, device="cpu"), C, DT,
                                torch.as_tensor(VOL.astype(np_dt)), 1, tset,
                                gauss_chunk=9)
     mse_loss(h, torch.as_tensor(target))[0].backward()
@@ -178,7 +178,7 @@ def test_adam_steps_match_jax_dense_train_step(dtype, n_steps):
     step = make_train_step(tset, optim, max_sh_degree=1)
     for i in range(n_steps):
         aux = step(state, torch.as_tensor(cams[i]), torch.as_tensor(targets[i]),
-                   tm.volume_box_points(vol, 0.6), C, DT, torch.as_tensor(vol))
+                   tm.volume_box_points(vol, 0.6, device="cpu"), C, DT, torch.as_tensor(vol))
         assert np.isfinite(float(aux.loss)) and not bool(aux.overflow)
     assert state.step == j_steps == 1 + n_steps
     for name in PARAM_NAMES:
