@@ -12,11 +12,15 @@ size: 100k Gaussians (numpy seed 0, sigma 2-12 mm), one scan point per step,
     `tune_rsort_spec`;
   - `pallas_analytic` (exact per-bin erf integrals; K1, K2, K5, K6);
   - `pallas` (the tile backend; K7, K8), `k_max` fitted by
-    `fit_culling_capacity` on the five probe scan points.
+    `fit_culling_capacity` on the five probe scan points;
+
+and the measurement tools path (`nlos_gaussian_renderer_tpu_torch/tools`):
+the microbenchmarks with the work-list kernel K9, cullbench, and the 100k
+gradient parity of `pallas_rsort` against the chunked dense ground truth.
 
 Phases:
 
-  1. build the eight CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
+  1. build the nine CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
   2. fit the capacities (rsort caps on the bench's three probe cameras; the
      tile `k_max` from 2048 by doubling on the corners and middle of the
      256x256 scan grid);
@@ -25,6 +29,9 @@ Phases:
      rel_l2 <= 1e-5; K4, K6 rel_l2 <= 1e-4 over visited blocks; K8 <= 1e-4
      on rows below each tile's count and exactly 0 past it), time both with
      CUDA events, and print each kernel's work count and roofline bound;
+     then K1-K4 once more, at the spec the tools tune (t_chunk 32, gate_bins
+     4: seven radial chunks), with the same gates (the kernels line keeps
+     the train spec's rows);
   4. hold the 100k forward histograms to the Gaussian-chunked dense
      reference (`pallas_rsort` and `pallas` rel_l2 < 2.5e-3), and
      `pallas_analytic` to the chunked dense `analytic` backend (< 2.5e-3)
@@ -41,7 +48,19 @@ Phases:
      overflows again fails). After the counters are read, 10 more
      steps run under `torch.profiler`: device time per step, device events
      per step, the largest kernels, and the busy share (device time over
-     the timed ms/step). A profiler that fails is reported, not fatal.
+     the timed ms/step). A profiler that fails is reported, not fatal;
+  7. K9 (`worklist_add`) against its plain version at the seven microbench
+     shapes and at a list with cnt < w: bit for bit, blocks no item names
+     exactly 0; the plain version timed, each shape's bound printed (this
+     phase runs right after phase 3);
+  8. the tools at JAX's sizes, counters reset before and read after: sort,
+     scatter-add, the K9 microbenchmark (K9's and the `index_add_`
+     yardstick's times, beside phase 7's bounds), the rsort step's
+     components (t_chunk 32, gates 4 and 32) and cullbench; every time
+     finite, no cull overflowed, K9 and K1-K4 launched;
+  9. 100k gradient parity (`tools/grad_parity.py`, rows sigma3 and
+     gtnoise, the three probe cameras): forward histogram rel_l2 < 2.5e-3
+     and every group's cosine >= 0.999; rel_l2 and max_norm printed.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -50,6 +69,7 @@ nonzero without that line; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -57,6 +77,20 @@ import time
 import traceback
 
 import numpy as np
+import torch
+
+from nlos_gaussian_renderer_tpu_torch.tools import (
+    C_LIGHT,
+    DELTA_T,
+    END,
+    NS,
+    PROBE_CAMS,
+    START,
+    VOLUME_POSITION,
+    VOLUME_SIZE,
+    bench_scene,
+    elapsed_ms,
+)
 
 N_GAUSSIANS = 100_000
 N_GRAD = 5_000
@@ -68,11 +102,8 @@ PATH_KERNELS = {
     "pallas_analytic": ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd"),
     "pallas": ("field_fwd", "field_bwd"),
 }
-VOLUME_POSITION = np.array([0.0, 1.0, 0.0], dtype=np.float32)
-VOLUME_SIZE = 0.6
-C_LIGHT, DELTA_T = 1.0, 0.0052  # bins 100..300 cover radii ~0.52..1.56 m
-NS, START, END = 32, 100, 300
-PROBE_CAMS = np.array([[-0.4, 0, -0.4], [0, 0, 0], [0.4, 0, 0.4]], np.float32)
+TOOLS_KERNELS = ("worklist_add", "cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
+K9_ROW_SHAPE = (4096, 1024)  # (s, w) of the K9 row in the kernels line
 SCAN_M = SCAN_N = 256
 # Peak rates of one H100 SXM at its 700 W limit: HBM3 bytes/s and non-tensor
 # FP32 FLOP/s (NVIDIA's data sheet), and MUFU (SFU) results/s: 16 per SM per
@@ -141,37 +172,11 @@ def probe_scan_points() -> np.ndarray:
     return grid[sorted({0, n - 1, (m - 1) * n, m * n - 1, (m * n) // 2})]
 
 
-def bench_scene(torch, n, seed, dev, max_sh_degree=0, random_pose=False):
-    """The bench scene of `bench.py`: the synthetic blob cluster with
-    log-uniform sigma in [2, 12] mm. `random_pose` also draws quaternions
-    and higher SH bands, so every parameter group carries a gradient."""
-    from nlos_gaussian_renderer_tpu_torch.data.synthetic import make_ground_truth_scene
-
-    rng = np.random.default_rng(seed)
-    scene = make_ground_truth_scene(
-        rng, n, VOLUME_POSITION, VOLUME_SIZE, max_sh_degree=max_sh_degree,
-        device=dev,
-    )
-    log_s = rng.uniform(np.log(0.002), np.log(0.012), (n, 3)).astype(np.float32)
-    with torch.no_grad():
-        scene.log_scales.copy_(torch.as_tensor(log_s))
-        if random_pose:
-            scene.quats.copy_(torch.as_tensor(rng.normal(size=(n, 4)).astype(np.float32)))
-            rest = 0.1 * rng.normal(size=tuple(scene.sh_rest.shape))
-            scene.sh_rest.copy_(torch.as_tensor(rest.astype(np.float32)))
-    return scene, rng
-
-
-def cuda_time(torch, fn, reps):
+def cuda_time(fn, reps):
+    """ms per call of `fn` on the card: one warm-up call, then `reps` calls
+    between CUDA events."""
     fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return elapsed_ms(torch.device("cuda"), lambda: [fn() for _ in range(reps)]) / reps
 
 
 def nbytes(*ts) -> int:
@@ -191,7 +196,7 @@ def bound(name, work, n_bytes, flops, mufu):
     return ms, ("bytes" if what == "bytes" else "operations"), what
 
 
-def device_profile(torch, run, steps):
+def device_profile(run, steps):
     """Run the train steps `steps` under torch.profiler. Returns (device ms
     per step, device events per step, {kernel: ms per step}) from the
     device events' own times (kernels, memsets, copies); user annotations,
@@ -235,8 +240,6 @@ def profile_group(name: str) -> str:
 
 
 def main() -> int:
-    import torch
-
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -293,7 +296,7 @@ def main() -> int:
     base_spec = fr.RSortSpec(t_chunk=-(-nb // 8) * 8, gate_bins=8)
     probes = probe_scan_points()
 
-    scene, _ = bench_scene(torch, N_GAUSSIANS, 0, dev)
+    scene, _, _ = bench_scene(N_GAUSSIANS, device=dev)
 
     @phase("tune rsort caps (100k)")
     def tune(sc):
@@ -319,102 +322,126 @@ def main() -> int:
     pcam = torch.zeros(3, device=dev)
     kernel_rows = {}
 
+    @torch.no_grad()
+    def rsort_kernels(sp, tag=""):
+        """Cull the 100k scene at the centre camera with spec `sp` and hold
+        K1-K4 to their plain versions (K1/K2 exactly equal; K3 rel_l2 <=
+        1e-5; K4 <= 1e-4 over visited blocks, zeros elsewhere). Returns the
+        four kernels' rows (errors, times, bounds) and the cull's operands."""
+        grid = shell_grid(pcam, box, NS, START, END, C_LIGHT, DELTA_T)
+        w = channel_weights(scene, pcam, 0, settings)
+        gfeat = scene.quadratic_form()
+        tiles = fr.rsort_cull(scene.means, scene.scales, scene.alive, pcam,
+                              grid.theta, grid.phi, grid.r, sp,
+                              gw=torch.cat([gfeat, w], 1))
+        n_gw = gfeat.shape[1] + w.shape[1]
+        kb = tiles.words.shape[0] // sp.g_tile
+        n_tt, n_pt = -(-NS // sp.t_theta), -(-NS // sp.t_phi)
+        n_ch = -(-nb // sp.t_chunk)
+        words = tiles.words.reshape(kb, sp.g_tile).contiguous()
+        lo = tiles.table[:, n_gw + 1].reshape(kb, sp.g_tile).contiguous()
+        hi = tiles.table[:, n_gw + 2].reshape(kb, sp.g_tile).contiguous()
+        tb = n_ch * sp.t_chunk
+        n_items = int(tiles.n_items[0])
+        check(not bool(tiles.overflowed), f"rsort cull fits{tag}")
+        log(f"KB={kb} T_ang={n_tt * n_pt} chunks={n_ch} x {sp.t_chunk} bins "
+            f"n_items={n_items} w_max={sp.w_max}{tag}")
+
+        # Work of the field kernels K3-K6: member rows of each item, its
+        # bins, and the tile's rays.
+        lists = tiles.fwd[:, :n_items].long()
+        memb = fr._member_of(words[lists[2]], lists[0][:, None], n_tt, n_pt)
+        rows_it = memb.sum(1).double()
+        bins_it = (lists[5] - lists[4] + 1).double()
+        s_ang = sp.t_theta * sp.t_phi
+        row_rays = float((rows_it * s_ang).sum())
+        triples = float((rows_it * bins_it * s_ang).sum())
+        c = w.shape[1]
+        rows = {}
+
+        k1 = lambda: fr.cull_reduce(words, lo, hi, grid.r, n_tt, n_pt, tb)
+        p1 = lambda: fr._cull_reduce_plain(words, lo, hi, grid.r, n_tt, n_pt, tb)
+        (alo, ahi), (plo, phi_) = k1(), p1()
+        eq1 = torch.equal(alo, plo) and torch.equal(ahi, phi_)
+        check(eq1, f"K1 cull_reduce == plain (exact){tag}")
+        rows["cull_reduce"] = dict(
+            max_abs_err=float(max((alo - plo).abs().max(), (ahi - phi_).abs().max())),
+            ms=cuda_time(k1, 50), plain_ms=cuda_time(p1, 10),
+            bound=bound(f"cull_reduce{tag}", f"{kb * n_tt * n_pt * sp.g_tile} (block, "
+                        "tile, row) tests", nbytes(words, lo, hi, grid.r, alo, ahi),
+                        2 * kb * n_tt * n_pt * sp.g_tile, 0))
+
+        k2 = lambda: fr.build_work_lists(alo, ahi, n_ch, sp.t_chunk, sp.w_max)
+        p2 = lambda: fr._build_work_lists_plain(alo, ahi, n_ch, sp.t_chunk, sp.w_max)
+        ok_k, ok_p = k2(), p2()
+        eq2 = all(torch.equal(a, b) for a, b in zip(ok_k, ok_p))
+        check(eq2, f"K2 build_work_lists == plain (exact, all outputs){tag}")
+        err2 = max(float((a - b).abs().max()) for a, b in zip(ok_k, ok_p))
+        rows["build_work_lists"] = dict(
+            max_abs_err=err2, ms=cuda_time(k2, 50), plain_ms=cuda_time(p2, 10),
+            bound=bound(f"build_work_lists{tag}", f"{kb * n_tt * n_pt} pairs -> "
+                        f"{n_items} items", nbytes(alo, ahi, *ok_k),
+                        4 * kb * n_tt * n_pt, 0))
+
+        tp = tf.TileSpec(t_theta=sp.t_theta, t_phi=sp.t_phi, t_r=sp.t_chunk)
+        xfeat, centers = tf.tile_points_centered_direct_t(
+            grid.theta, grid.phi, grid.r, pcam, tp, n_tt, n_pt, n_ch)
+        xfeat, centers = xfeat.contiguous(), centers.contiguous()
+        geo = fr.RSortGeometry(n_tt, n_pt, n_ch, sp.t_chunk, sp.g_tile, s_ang)
+        wflat = tiles.words.reshape(-1).contiguous()
+        table = tiles.table.contiguous()
+        k3 = lambda: fr.rsort_fwd(xfeat, centers, table, wflat, tiles.fwd,
+                                  tiles.n_items, geo, c)
+        p3 = lambda: fr._rsort_fwd_plain(xfeat, centers, table, wflat, tiles.fwd,
+                                         tiles.n_items, geo, c)
+        o3, r3 = k3(), p3()
+        e3 = rel_l2(o3, r3)
+        check(e3 <= 1e-5, f"K3 rsort_fwd rel_l2 {e3:.3e} <= 1e-5{tag}")
+        # Per (row, sample) pair: the 10-term form, the exp, C multiply-adds.
+        rows["rsort_fwd"] = dict(
+            max_abs_err=float((o3 - r3).abs().max()), rel_l2=e3,
+            ms=cuda_time(k3, 20), plain_ms=cuda_time(p3, 3),
+            bound=bound(f"rsort_fwd{tag}", f"{triples:.4g} (row, sample) pairs",
+                        nbytes(xfeat, centers, table, wflat, tiles.fwd, o3),
+                        triples * 2 * (10 + c), triples))
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        go = torch.randn(o3.shape, generator=gen, device=dev)
+        k4 = lambda: fr.rsort_bwd(xfeat, centers, table, wflat, tiles.bwd,
+                                  tiles.n_items, go, geo, c)
+        p4 = lambda: fr._rsort_bwd_plain(xfeat, centers, table, wflat, tiles.bwd,
+                                         tiles.n_items, go, geo, c)
+        o4, r4 = k4(), p4()
+        visited = tiles.blk_has_work.repeat_interleave(sp.g_tile)
+        e4 = rel_l2(o4[visited], r4[visited])
+        check(e4 <= 1e-4, f"K4 rsort_bwd rel_l2 {e4:.3e} <= 1e-4 (visited blocks){tag}")
+        check(bool((o4[~visited] == 0).all()), f"K4 leaves unvisited blocks zero{tag}")
+        # Per pair: the form, the exp, and the rank-C Z accumulation.
+        rows["rsort_bwd"] = dict(
+            max_abs_err=float((o4 - r4).abs().max()), rel_l2=e4,
+            ms=cuda_time(k4, 20), plain_ms=cuda_time(p4, 3),
+            bound=bound(f"rsort_bwd{tag}", f"{triples:.4g} (row, sample) pairs",
+                        nbytes(xfeat, centers, table, wflat, tiles.bwd, go, o4),
+                        triples * (20 + 22 * c), triples))
+        return rows, dict(grid=grid, w=w, gfeat=gfeat, tiles=tiles, geo=geo, table=table,
+                          wflat=wflat, visited=visited, row_rays=row_rays,
+                          triples=triples, c=c, gen=gen)
+
+    def log_rows(rows, tag=""):
+        for name, row in rows.items():
+            log(f"{name}{tag}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound'][0]:.4f} ms ({row['bound'][2]}), "
+                f"max_abs_err {row['max_abs_err']:.3e}, on {card}")
+
     @phase("kernels vs plain versions (100k, cam 0)")
     def kernels_vs_plain():
+        rs, op = rsort_kernels(spec)
+        kernel_rows.update(rs)
+        grid, w, gfeat, tiles, geo = op["grid"], op["w"], op["gfeat"], op["tiles"], op["geo"]
+        table, wflat, visited, gen, c = (op["table"], op["wflat"], op["visited"], op["gen"],
+                                         op["c"])
+        row_rays, triples = op["row_rays"], op["triples"]
         with torch.no_grad():
-            grid = shell_grid(pcam, box, NS, START, END, C_LIGHT, DELTA_T)
-            w = channel_weights(scene, pcam, 0, settings)
-            gfeat = scene.quadratic_form()
-            tiles = fr.rsort_cull(scene.means, scene.scales, scene.alive, pcam,
-                                  grid.theta, grid.phi, grid.r, spec,
-                                  gw=torch.cat([gfeat, w], 1))
-            n_gw = gfeat.shape[1] + w.shape[1]
-            kb = tiles.words.shape[0] // spec.g_tile
-            n_tt, n_pt = -(-NS // spec.t_theta), -(-NS // spec.t_phi)
-            n_ch = -(-nb // spec.t_chunk)
-            words = tiles.words.reshape(kb, spec.g_tile).contiguous()
-            lo = tiles.table[:, n_gw + 1].reshape(kb, spec.g_tile).contiguous()
-            hi = tiles.table[:, n_gw + 2].reshape(kb, spec.g_tile).contiguous()
-            tb = n_ch * spec.t_chunk
-            n_items = int(tiles.n_items[0])
-            log(f"KB={kb} T_ang={n_tt * n_pt} n_items={n_items} w_max={spec.w_max}")
-
-            # Work of the field kernels K3-K6: member rows of each item, its
-            # bins, and the tile's rays.
-            lists = tiles.fwd[:, :n_items].long()
-            memb = fr._member_of(words[lists[2]], lists[0][:, None], n_tt, n_pt)
-            rows_it = memb.sum(1).double()
-            bins_it = (lists[5] - lists[4] + 1).double()
-            s_ang = spec.t_theta * spec.t_phi
-            row_rays = float((rows_it * s_ang).sum())
-            triples = float((rows_it * bins_it * s_ang).sum())
-            c = w.shape[1]
-
-            k1 = lambda: fr.cull_reduce(words, lo, hi, grid.r, n_tt, n_pt, tb)
-            p1 = lambda: fr._cull_reduce_plain(words, lo, hi, grid.r, n_tt, n_pt, tb)
-            (alo, ahi), (plo, phi_) = k1(), p1()
-            eq1 = torch.equal(alo, plo) and torch.equal(ahi, phi_)
-            check(eq1, "K1 cull_reduce == plain (exact)")
-            kernel_rows["cull_reduce"] = dict(
-                max_abs_err=float(max((alo - plo).abs().max(), (ahi - phi_).abs().max())),
-                ms=cuda_time(torch, k1, 50), plain_ms=cuda_time(torch, p1, 10),
-                bound=bound("cull_reduce", f"{kb * n_tt * n_pt * spec.g_tile} (block, tile, "
-                            "row) tests", nbytes(words, lo, hi, grid.r, alo, ahi),
-                            2 * kb * n_tt * n_pt * spec.g_tile, 0))
-
-            k2 = lambda: fr.build_work_lists(alo, ahi, n_ch, spec.t_chunk, spec.w_max)
-            p2 = lambda: fr._build_work_lists_plain(alo, ahi, n_ch, spec.t_chunk, spec.w_max)
-            ok_k, ok_p = k2(), p2()
-            eq2 = all(torch.equal(a, b) for a, b in zip(ok_k, ok_p))
-            check(eq2, "K2 build_work_lists == plain (exact, all outputs)")
-            err2 = max(float((a - b).abs().max()) for a, b in zip(ok_k, ok_p))
-            kernel_rows["build_work_lists"] = dict(
-                max_abs_err=err2, ms=cuda_time(torch, k2, 50),
-                plain_ms=cuda_time(torch, p2, 10),
-                bound=bound("build_work_lists", f"{kb * n_tt * n_pt} pairs -> {n_items} "
-                            "items", nbytes(alo, ahi, *ok_k), 4 * kb * n_tt * n_pt, 0))
-
-            tp = tf.TileSpec(t_theta=spec.t_theta, t_phi=spec.t_phi, t_r=spec.t_chunk)
-            xfeat, centers = tf.tile_points_centered_direct_t(
-                grid.theta, grid.phi, grid.r, pcam, tp, n_tt, n_pt, n_ch)
-            xfeat, centers = xfeat.contiguous(), centers.contiguous()
-            geo = fr.RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile, s_ang)
-            wflat = tiles.words.reshape(-1).contiguous()
-            table = tiles.table.contiguous()
-            k3 = lambda: fr.rsort_fwd(xfeat, centers, table, wflat, tiles.fwd,
-                                      tiles.n_items, geo, c)
-            p3 = lambda: fr._rsort_fwd_plain(xfeat, centers, table, wflat, tiles.fwd,
-                                             tiles.n_items, geo, c)
-            o3, r3 = k3(), p3()
-            e3 = rel_l2(o3, r3)
-            check(e3 <= 1e-5, f"K3 rsort_fwd rel_l2 {e3:.3e} <= 1e-5")
-            # Per (row, sample) pair: the 10-term form, the exp, C multiply-adds.
-            kernel_rows["rsort_fwd"] = dict(
-                max_abs_err=float((o3 - r3).abs().max()), rel_l2=e3,
-                ms=cuda_time(torch, k3, 20), plain_ms=cuda_time(torch, p3, 3),
-                bound=bound("rsort_fwd", f"{triples:.4g} (row, sample) pairs",
-                            nbytes(xfeat, centers, table, wflat, tiles.fwd, o3),
-                            triples * 2 * (10 + c), triples))
-
-            gen = torch.Generator(device=dev).manual_seed(0)
-            go = torch.randn(o3.shape, generator=gen, device=dev)
-            k4 = lambda: fr.rsort_bwd(xfeat, centers, table, wflat, tiles.bwd,
-                                      tiles.n_items, go, geo, c)
-            p4 = lambda: fr._rsort_bwd_plain(xfeat, centers, table, wflat, tiles.bwd,
-                                             tiles.n_items, go, geo, c)
-            o4, r4 = k4(), p4()
-            rows = tiles.blk_has_work.repeat_interleave(spec.g_tile)
-            e4 = rel_l2(o4[rows], r4[rows])
-            check(e4 <= 1e-4, f"K4 rsort_bwd rel_l2 {e4:.3e} <= 1e-4 (visited blocks)")
-            check(bool((o4[~rows] == 0).all()), "K4 leaves unvisited blocks zero")
-            # Per pair: the form, the exp, and the rank-C Z accumulation.
-            kernel_rows["rsort_bwd"] = dict(
-                max_abs_err=float((o4 - r4).abs().max()), rel_l2=e4,
-                ms=cuda_time(torch, k4, 20), plain_ms=cuda_time(torch, p4, 3),
-                bound=bound("rsort_bwd", f"{triples:.4g} (row, sample) pairs",
-                            nbytes(xfeat, centers, table, wflat, tiles.bwd, go, o4),
-                            triples * (20 + 22 * c), triples))
-
             # K5 / K6 on the same cull, at the pallas_analytic path's shapes.
             an = (*fa.analytic_operands(grid, pcam, spec), table, wflat)
             k5 = lambda: fa.analytic_fwd(*an, tiles.fwd, tiles.n_items, geo, c)
@@ -427,7 +454,7 @@ def main() -> int:
             # and one MUFU ex2 each), the difference and C multiply-adds.
             kernel_rows["analytic_fwd"] = dict(
                 max_abs_err=float((o5 - r5).abs().max()), rel_l2=e5,
-                ms=cuda_time(torch, k5, 10), plain_ms=cuda_time(torch, p5, 3),
+                ms=cuda_time(k5, 10), plain_ms=cuda_time(p5, 3),
                 bound=bound("analytic_fwd", f"{row_rays:.4g} (row, ray) pairs, "
                             f"{triples:.4g} (row, bin, ray) triples",
                             nbytes(*an, tiles.fwd, o5),
@@ -438,15 +465,15 @@ def main() -> int:
             k6 = lambda: fa.analytic_bwd(*an, tiles.bwd, tiles.n_items, go5, geo, c)
             p6 = lambda: fa._analytic_bwd_plain(*an, tiles.bwd, tiles.n_items, go5, geo, c)
             o6, r6 = k6(), p6()
-            e6 = rel_l2(o6[rows], r6[rows])
+            e6 = rel_l2(o6[visited], r6[visited])
             check(e6 <= 1e-4, f"K6 analytic_bwd rel_l2 {e6:.3e} <= 1e-4 (visited blocks)")
-            check(bool((o6[~rows] == 0).all()), "K6 leaves unvisited blocks zero")
+            check(bool((o6[~visited] == 0).all()), "K6 leaves unvisited blocks zero")
             # Per (row, ray): the forms, section terms, and the 3 x 10
             # cotangent contraction; per edge (bins + 1): one erff and one
             # expf; per triple: the moment sums.
             kernel_rows["analytic_bwd"] = dict(
                 max_abs_err=float((o6 - r6).abs().max()), rel_l2=e6,
-                ms=cuda_time(torch, k6, 10), plain_ms=cuda_time(torch, p6, 3),
+                ms=cuda_time(k6, 10), plain_ms=cuda_time(p6, 3),
                 bound=bound("analytic_bwd", f"{row_rays:.4g} (row, ray) pairs, "
                             f"{triples:.4g} (row, bin, ray) triples",
                             nbytes(*an, tiles.bwd, go5, o6),
@@ -477,7 +504,7 @@ def main() -> int:
             # the -1/2 scale, one exp, C multiply-adds.
             kernel_rows["field_fwd"] = dict(
                 max_abs_err=float((o7 - r7).abs().max()), rel_l2=e7,
-                ms=cuda_time(torch, k7, 10), plain_ms=cuda_time(torch, p7, 2),
+                ms=cuda_time(k7, 10), plain_ms=cuda_time(p7, 2),
                 bound=bound("field_fwd", f"{pairs:.4g} (row, sample) pairs",
                             nbytes(xt, counts, o7) + rows_read,
                             pairs * (21 + 2 * c), pairs))
@@ -497,17 +524,72 @@ def main() -> int:
             # (2C - 1), dm (2) and dg's 10 multiply-adds: 42 + 4C.
             kernel_rows["field_bwd"] = dict(
                 max_abs_err=float(max((dg8 - rg8).abs().max(), (dw8 - rw8).abs().max())),
-                rel_l2=e8, ms=cuda_time(torch, k8, 10), plain_ms=cuda_time(torch, p8, 2),
+                rel_l2=e8, ms=cuda_time(k8, 10), plain_ms=cuda_time(p8, 2),
                 bound=bound("field_bwd", f"{pairs:.4g} (row, sample) pairs",
                             nbytes(xt, counts, go7, dg8, dw8) + rows_read,
                             pairs * (42 + 4 * c), pairs))
-        for name, row in kernel_rows.items():
-            log(f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"bound {row['bound'][0]:.4f} ms ({row['bound'][2]}), "
-                f"max_abs_err {row['max_abs_err']:.3e}, on {card}")
+        log_rows(kernel_rows)
         return True
 
     kernels_vs_plain()
+
+    @phase("K1-K4 vs plain versions at the tools' spec (100k, cam 0, t_chunk 32)")
+    def rsort_kernels_tools_spec():
+        # The spec `tools/microbench --rsort` and cullbench tune: 7 radial
+        # chunks, where the train step's single chunk covers all 200 bins.
+        sp = fr.tune_rsort_spec(scene, PROBE_CAMS, box, NS, START, END, C_LIGHT, DELTA_T,
+                                base=fr.RSortSpec(t_chunk=32, gate_bins=4))
+        rows, _ = rsort_kernels(sp, " (t_chunk 32)")
+        log_rows(rows, " (t_chunk 32)")
+        return True
+
+    rsort_kernels_tools_spec()
+
+    k9_bounds = {}  # (s, w) -> bound of the tools' K9 run at cnt = w
+
+    @phase("K9 worklist_add vs plain (microbench shapes)")
+    def worklist_vs_plain():
+        from nlos_gaussian_renderer_tpu_torch.tools import microbench as mb
+
+        # The seed and draw order of `bench_worklist_kernel`, so the first
+        # seven lists are the ones the tools phase times.
+        rng = np.random.default_rng(0)
+        kb = mb.WORKLIST_KB
+        cases = [(s, w, w) for s, _, w in mb.WORKLIST_SHAPES] + [(1024, 2048, 700)]
+        err = 0.0
+        for s, w, n in cases:
+            x = torch.as_tensor(rng.standard_normal((kb, s, 8)).astype(np.float32), device=dev)
+            fb = torch.as_tensor(rng.integers(0, kb, w).astype(np.int32), device=dev)
+            cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+            k9 = lambda: mb.worklist_add(fb, cnt, x)
+            p9 = lambda: mb._worklist_add_plain(fb, cnt, x)
+            o, r = k9(), p9()
+            seen = torch.zeros(kb, dtype=torch.bool, device=dev)
+            seen[fb[:n].long()] = True
+            check(torch.equal(o, r) and bool((o[~seen] == 0).all()),
+                  f"K9 s={s} w={w} cnt={n}: == plain bit for bit, unvisited blocks 0")
+            err = max(err, float((o - r).abs().max()))
+            row_bytes = s * 8 * 4
+            distinct = int(seen.sum())
+            # Each distinct x row read once, all of o written once, the
+            # list's first cnt ids and cnt read; a multiply and an add an
+            # element of each item.
+            b = bound(f"worklist_add s={s} w={w} cnt={n}",
+                      f"{n} items of {s * 8} floats, {distinct} distinct blocks",
+                      distinct * row_bytes + kb * row_bytes + 4 * n + 4,
+                      2 * n * s * 8, 0)
+            pms = cuda_time(p9, 2)
+            log(f"K9 s={s} w={w} cnt={n}: plain {pms:.3f} ms, bound {b[0]:.4f} ms ({b[2]}), "
+                f"on {card}")
+            if n == w:
+                k9_bounds[s, w] = b
+            if (s, w) == K9_ROW_SHAPE:
+                kernel_rows["worklist_add"] = dict(plain_ms=pms, bound=b)
+        # Its kernel and `index_add_` times come from the tools phase.
+        kernel_rows["worklist_add"]["max_abs_err"] = err
+        return True
+
+    worklist_vs_plain()
 
     @phase("100k forward histogram vs chunked dense")
     def forward_parity():
@@ -561,7 +643,8 @@ def main() -> int:
 
     @phase("5k gradients vs chunked dense autograd")
     def grad_parity():
-        sc5, rng5 = bench_scene(torch, N_GRAD, 1, dev, max_sh_degree=1, random_pose=True)
+        sc5, _, rng5 = bench_scene(N_GRAD, seed=1, device=dev, max_sh_degree=1,
+                                   random_pose=True)
         spec5 = fr.tune_rsort_spec(sc5, PROBE_CAMS, box, NS, START, END, C_LIGHT,
                                    DELTA_T, base=base_spec)
         st5 = settings._replace(rsort_spec=spec5,
@@ -599,7 +682,7 @@ def main() -> int:
         `backend` at 100k, read the counters; returns (counts, ms/step,
         step calls). A step that overflows a capacity is re-fitted and
         replayed from the unchanged state by `GatedTrainStep`."""
-        sc, rng_t = bench_scene(torch, N_GAUSSIANS, 0, dev)
+        sc, _, rng_t = bench_scene(N_GAUSSIANS, device=dev)
         optim = OptimizationParams()
         state = create_train_state(sc, optim)
         step = GatedTrainStep(settings._replace(backend=backend), optim,
@@ -640,7 +723,7 @@ def main() -> int:
             f"step calls ({step.retunes} re-tunes), k_max {step.settings.tile_spec.k_max}, "
             f"on {card}")
         try:
-            dev_ms, events, by_name = device_profile(torch, run_step,
+            dev_ms, events, by_name = device_profile(run_step,
                                                      range(n_run, n_run + PROFILE_STEPS))
         except Exception:  # a diagnostic, not a gate: reported and skipped
             log(f"{backend} profile unavailable:\n{traceback.format_exc()}")
@@ -662,15 +745,76 @@ def main() -> int:
         backend: phase(f"train 100k {backend}")(train)(backend)
         for backend in PATH_KERNELS
     }
-    if failures or None in trained.values() or len(kernel_rows) != 8:
+
+    @phase("tools at JAX's sizes (microbench, rsort components, cullbench)")
+    def tools():
+        from nlos_gaussian_renderer_tpu_torch.tools import cullbench
+        from nlos_gaussian_renderer_tpu_torch.tools import microbench as mb
+
+        cuda_build.reset_launch_counts()
+        timed = mb.bench_sort() + mb.bench_scatter_add()
+        wl = mb.bench_worklist_kernel()
+        rs = mb.bench_rsort_step_components()
+        cull_times, cull_overflows = cullbench.run()
+        torch.cuda.synchronize()
+        counts = cuda_build.launch_counts()
+        for r in wl:
+            b = k9_bounds[r["s"], r["w"]]
+            log(f"K9 s={r['s']} w={r['w']}: kernel {r['ms']:.4f} ms ({r['us_per_item']:.4f} "
+                f"us/item), index_add_ {r['library_ms']:.4f} ms, bound {b[0]:.4f} ms "
+                f"({b[2]}), on {card}")
+            if (r["s"], r["w"]) == K9_ROW_SHAPE:
+                kernel_rows["worklist_add"].update(ms=r["ms"], library_ms=r["library_ms"])
+        nums = ([r["ms"] for r in timed + wl] + [r["library_ms"] for r in wl]
+                + [r[k] for r in rs for k in ("cull_ms", "cull_fwd_ms", "cull_fwd_bwd_ms")]
+                + list(cull_times.values()))
+        check(all(np.isfinite(v) and v > 0 for v in nums),
+              f"{len(nums)} tool times finite and positive")
+        check(not any(r["overflowed"] for r in rs) and cull_overflows == 0,
+              "no cull of the tools overflowed")
+        check(all(counts[k] > 0 for k in TOOLS_KERNELS), f"tools launch counts {counts}")
+        log(f"tools on {card}")
+        return counts
+
+    tools_counts = tools()
+
+    @phase("100k gradient parity (grad_parity sigma3, gtnoise)")
+    def grad_parity_100k():
+        from nlos_gaussian_renderer_tpu_torch.tools import grad_parity as gp
+
+        cuda_build.reset_launch_counts()
+        with contextlib.redirect_stdout(sys.stderr):  # its JSON line
+            out = gp.main(["--rows", "sigma3,gtnoise"])
+        counts = cuda_build.launch_counts()
+        check(all(counts[k] > 0 for k in PATH_KERNELS["pallas_rsort"]),
+              f"grad_parity launch counts {counts}")
+        row, noise = out["rows"]["f32_sigma3"], out["rows"]["dense_gt_self_noise_chunk_x2"]
+        fwd = row["_forward_hist"]["rel_l2"]
+        check(fwd < 2.5e-3, f"100k forward histogram rel_l2 {fwd:.3e} < 2.5e-3 (worst cam)")
+        for g in gp.GROUPS:
+            r = row[g]
+            check(r["cosine"] >= 0.999,
+                  f"100k pallas_rsort grad {g}: rel_l2 {r['rel_l2']:.3e} max_norm "
+                  f"{r['max_norm']:.3e} cosine {r['cosine']:.7f} >= 0.999 (ground truth "
+                  f"vs itself at chunk x2: {noise[g]['rel_l2']:.3e})")
+        log(f"100k gradient parity: caps {out['caps']}, on {card}")
+        return out
+
+    grad_parity_100k()
+    if (failures or None in trained.values() or tools_counts is None
+            or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
-    launches = {k: sum(c[k] for c, _, _ in trained.values()) for k in kernel_rows}
-    per_step = {}
+    on_steps = {k for ks in PATH_KERNELS.values() for k in ks}
+    launches = {k: sum(c[k] for c, _, _ in trained.values()) if k in on_steps
+                else tools_counts[k] for k in kernel_rows}
+    # A kernel on no train step (K9) launches 0 times a step.
+    per_step = dict.fromkeys(kernel_rows, 0)
     for backend, (counts, _, calls) in trained.items():
         for k in PATH_KERNELS[backend]:
-            per_step.setdefault(k, counts[k] / calls)
-    check(all(v > 0 for v in launches.values()), f"all eight kernels launched: {launches}")
+            per_step[k] = per_step[k] or counts[k] / calls
+    check(all(v > 0 for v in launches.values()),
+          f"all {len(kernel_rows)} kernels launched: {launches}")
     if failures:
         return 1
     log(f"summary: fwd_rel_l2={fwd_rel:.3e} analytic_rel_l2={an_rel} "
@@ -683,7 +827,7 @@ def main() -> int:
              replaces=cuda_build.KERNELS[name].replaces, launches=launches[name],
              launches_per_step=per_step[name], max_abs_err=row["max_abs_err"],
              ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
-             bound_by=row["bound"][1], library_ms=None)
+             bound_by=row["bound"][1], library_ms=row.get("library_ms"))
         for name, row in kernel_rows.items()
     ]
     log(card)

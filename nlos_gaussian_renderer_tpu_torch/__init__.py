@@ -14,10 +14,13 @@ Conventions:
   - Randomness comes from a caller's `torch.Generator` or from numpy.
   - The eight Pallas kernels of the three kernel backends (`pallas`,
     `pallas_rsort`, `pallas_analytic`) are CUDA C++ kernels under `csrc/`,
-    built on first use (`ops/cuda_build.py`). Each wrapper in `ops/fused.py`,
-    `ops/fused_rsort.py` and `ops/fused_analytic.py` launches its kernel for
-    CUDA tensors and runs the plain PyTorch version beside it for CPU
-    tensors.
+    built on first use (`ops/cuda_build.py`), and so is the ninth, the
+    work-list microbenchmark of `tools/microbench.py`. Each wrapper in
+    `ops/fused.py`, `ops/fused_rsort.py`, `ops/fused_analytic.py` and
+    `tools/microbench.py` launches its kernel for CUDA tensors and runs the
+    plain PyTorch version beside it for CPU tensors.
+  - `tools/` holds the measurement tools (microbench, cullbench,
+    grad_parity): on the card by default, on the CPU when asked.
 """
 
 __version__ = "0.1.0"

@@ -8,8 +8,9 @@ flags, so an edited kernel is never served stale. There is no fallback: a
 missing `nvcc` or a failed build raises.
 
 `KERNELS` registers every kernel of the port (its source, the TPU kernel it
-replaces, its launch count); the wrappers in `ops/fused*.py` launch through
-it and check their tensors with `check_tensor`.
+replaces, its launch count); the wrappers in `ops/fused*.py` and
+`tools/microbench.py` launch through it and check their tensors with
+`check_tensor`.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ SIGNATURES = {
     "analytic_bwd": [_P] * 9 + [_I] * 13 + [_P],
     "field_fwd": [_P] * 5 + [_I] * 4 + [_P],
     "field_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    "worklist_add": [_P] * 4 + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()
@@ -168,6 +170,7 @@ KERNELS = {
         Kernel("analytic_bwd", f"{_SRC}/analytic_bwd.cu", f"{_JAX}/fused_analytic.py:340"),
         Kernel("field_fwd", f"{_SRC}/field_fwd.cu", f"{_JAX}/fused.py:71"),
         Kernel("field_bwd", f"{_SRC}/field_bwd.cu", f"{_JAX}/fused.py:90"),
+        Kernel("worklist_add", f"{_SRC}/worklist_add.cu", "tools/microbench.py:80"),
     )
 }
 

@@ -36,9 +36,10 @@ def test_port_has_the_mirrored_modules():
     for rel in ("configs/default.py", "models/scene.py", "ops/math.py",
                 "ops/sampling.py", "ops/schedule.py", "ops/render.py",
                 "ops/fused.py", "ops/fused_rsort.py", "ops/analytic.py",
-                "ops/fused_analytic.py", "train.py", "data/synthetic.py"):
+                "ops/fused_analytic.py", "train.py", "data/synthetic.py",
+                "tools/microbench.py", "tools/cullbench.py", "tools/grad_parity.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
                        "rsort_bwd.cu", "analytic_fwd.cu", "analytic_bwd.cu",
-                       "field_fwd.cu", "field_bwd.cu"}
+                       "field_fwd.cu", "field_bwd.cu", "worklist_add.cu"}

@@ -1,4 +1,4 @@
-"""The eight CUDA kernels against their plain PyTorch versions, on the card.
+"""The nine CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips (from its fixture) where no GPU is present.
 On the card: `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
@@ -10,7 +10,8 @@ partial last 128-row block. Tolerances: K1/K2 outputs exactly equal; K3, K5
 and K7 rel_l2 <= 1e-5; K4, K6 and K8 rel_l2 <= 1e-4 (the kernels evaluate
 the forms and section terms in the plain versions' operation order; only
 the order of the sums over Gaussians, bins and samples differs); K8 rows at
-or past a tile's count exactly zero."""
+or past a tile's count exactly zero; K9 (`worklist_add`) bit for bit, as all
+addends of one element are equal, with blocks no item names exactly zero."""
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from nlos_gaussian_renderer_tpu_torch.ops.render import (
     render_transient,
 )
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
+from nlos_gaussian_renderer_tpu_torch.tools import microbench as mb
 
 pytestmark = pytest.mark.cuda
 VOL = np.array([0.0, 1.0, 0.0], np.float32)
@@ -236,6 +238,27 @@ def test_render_and_grads_on_card_match_cpu_plain(dev, occ, backend):
         assert rel_l2(gg[n], gc[n]) <= 1e-3, n
 
 
+@pytest.mark.parametrize("case", ["cnt0", "cnt_below_w", "one_block_64_times"])
+def test_worklist_add_equals_plain_bit_for_bit(dev, case):
+    rng = np.random.default_rng(7)
+    kb, s, w = 16, 32, 64
+    x = torch.as_tensor(rng.standard_normal((kb, s, 8)).astype(np.float32), device=dev)
+    if case == "one_block_64_times":
+        fb, n = np.full(w, 5), w
+    else:
+        fb, n = rng.integers(0, kb, w), 0 if case == "cnt0" else 23
+    fb = torch.as_tensor(fb.astype(np.int32), device=dev)
+    cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+    before = cuda_build.launch_counts()["worklist_add"]
+    out = mb.worklist_add(fb, cnt, x)
+    ref = mb._worklist_add_plain(fb, cnt, x)
+    assert cuda_build.launch_counts()["worklist_add"] == before + 1
+    assert torch.equal(out, ref)
+    seen = torch.zeros(kb, dtype=torch.bool, device=dev)
+    seen[fb[:n].long()] = True
+    assert (out[~seen] == 0).all() and (n == 0 or (out[seen] != 0).any())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _inputs(dev, SPEC)
     t, geo = x["tiles"], x["geo"]
@@ -263,3 +286,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tf.field_fwd(xfeat, g, w.expand(-1, -1, 3).contiguous(), counts)
     with pytest.raises(ValueError):
         tf.field_bwd(xfeat, g, w, counts, torch.zeros_like(xfeat[..., :2]))
+    fb = torch.zeros(4, dtype=torch.int32, device=dev)
+    cnt = torch.tensor([4], dtype=torch.int32, device=dev)
+    x8 = torch.zeros((2, 4, 8), device=dev)
+    with pytest.raises(TypeError):
+        mb.worklist_add(fb.long(), cnt, x8)
+    with pytest.raises(ValueError):
+        mb.worklist_add(fb, cnt.expand(2).contiguous(), x8)
+    with pytest.raises(ValueError):
+        mb.worklist_add(fb, cnt, x8[..., :4].contiguous())
