@@ -31,7 +31,11 @@ Phases:
      CUDA events, and print each kernel's work count and roofline bound;
      then K1-K4 once more, at the spec the tools tune (t_chunk 32, gate_bins
      4: seven radial chunks), with the same gates (the kernels line keeps
-     the train spec's rows);
+     the train spec's rows). At both specs, for K3 and K4: the (row,
+     sample) pairs each CTA walks, from the lists, before and with the
+     work units (max/mean <= 2 with them), the schedule each builds on the
+     card equal to its plain builder, and a second launch equal to the
+     first bit for bit;
   4. hold the 100k forward histograms to the Gaussian-chunked dense
      reference (`pallas_rsort` and `pallas` rel_l2 < 2.5e-3), and
      `pallas_analytic` to the chunked dense `analytic` backend (< 2.5e-3)
@@ -196,6 +200,58 @@ def bound(name, work, n_bytes, flops, mufu):
     return ms, ("bytes" if what == "bytes" else "operations"), what
 
 
+def cta_work(fwd, bwd, n_items, geo):
+    """(row, sample) pairs each CTA of K3 and K4 walks, from the work lists:
+    {scheme: tensor over the CTAs with work}. 'before' is the schedule the
+    kernels had before their work units (K4 one CTA per Gaussian block; K3
+    one CTA per (tile, slice) walking the tile's items that touch the
+    slice), 'units' the present one (K4 one CTA per (unit, 256-row chunk);
+    K3 one CTA per (group, slice) unit)."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
+
+    n = int(n_items[0])
+    fwd, bwd = fwd.cpu(), bwd.cpu()
+    s_ang, gt = geo.s_ang, geo.g_tile
+    s_tot = s_ang * geo.t_chunk
+    out = {}
+    samples = (bwd[5, :n] - bwd[4, :n] + 1).double() * s_ang
+    per_block = torch.bincount(bwd[2, :n].long(), weights=samples)
+    out["K4 before"] = per_block[per_block > 0] * gt
+    off = fr._bwd_unit_offsets_plain(bwd, n_items.cpu(), fr.BWD_UNIT_BINS)
+    _, lo, hi = fr.bwd_units(off, bwd, fr.BWD_UNIT_BINS)
+    out["K4 units"] = ((hi - lo + 1).double() * s_ang * min(gt, 256)).repeat(
+        fr._cdiv(gt, 256))
+
+    def slices_of(items):
+        """(item, slice) pairs: the slices each item's bins touch."""
+        s_lo = fwd[4, items].long() * s_ang // fr.FWD_SLICE
+        s_hi = ((fwd[5, items].long() + 1) * s_ang - 1) // fr.FWD_SLICE
+        cnt = s_hi - s_lo + 1
+        it = torch.repeat_interleave(items, cnt)
+        first = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+        return it, torch.repeat_interleave(s_lo, cnt) + torch.arange(it.shape[0]) - first
+
+    def pairs(slc):
+        return (torch.clamp(s_tot - slc * fr.FWD_SLICE, max=fr.FWD_SLICE) * gt).double()
+
+    items = torch.arange(n)
+    it, slc = slices_of(items)
+    n_sl = fr._cdiv(s_tot, fr.FWD_SLICE)
+    key = fwd[0, it].long() * geo.n_ch + fwd[1, it].long()
+    cta = key * n_sl + slc
+    uniq, cnt = torch.unique(cta, return_counts=True)
+    out["K3 before"] = cnt.double() * pairs(uniq % n_sl)
+    sched = fr._fwd_groups_plain(fwd, n_items.cpu(), geo, fr.FWD_GROUP_ITEMS).long()
+    n_groups = int((sched[2] != fr._DEAD_KEY).sum())
+    group = torch.searchsorted(sched[0, :n_groups], it, right=True) - 1
+    unit = sched[5][group] + slc - sched[3][group]
+    n_units = int(sched[5, -1])
+    per_unit = torch.bincount(unit, minlength=n_units)
+    _, u_slc = fr.fwd_units(sched)
+    out["K3 units"] = (per_unit.double() * pairs(u_slc))[per_unit > 0]
+    return out
+
+
 def device_profile(run, steps):
     """Run the train steps `steps` under torch.profiler. Returns (device ms
     per step, device events per step, {kernel: ms per step}) from the
@@ -224,8 +280,8 @@ def profile_group(name: str) -> str:
     """The item of a device event's kernel name in the profile summary."""
     from nlos_gaussian_renderer_tpu_torch.ops.cuda_build import KERNELS
 
-    for k in KERNELS:
-        if f"{k}_kernel" in name:
+    for k in KERNELS:  # a kernel's launches: <name>_kernel, <name>_<part>_kernel
+        if f"{k}_" in name:
             return k
     low = name.lower()
     if "multi_tensor_apply" in low:
@@ -358,6 +414,15 @@ def main() -> int:
         triples = float((rows_it * bins_it * s_ang).sum())
         c = w.shape[1]
         rows = {}
+        geo = fr.RSortGeometry(n_tt, n_pt, n_ch, sp.t_chunk, sp.g_tile, s_ang)
+        work = cta_work(tiles.fwd, tiles.bwd, tiles.n_items, geo)
+        for name, v in work.items():
+            log(f"{name} (U {fr.BWD_UNIT_BINS}, I {fr.FWD_GROUP_ITEMS}){tag}: {v.numel()} "
+                f"CTAs with work, (row, sample) pairs a CTA: mean {float(v.mean()):.4g}, "
+                f"max {float(v.max()):.4g}, max/mean {float(v.max() / v.mean()):.3f}")
+        for k in ("K3", "K4"):
+            r = float(work[f"{k} units"].max() / work[f"{k} units"].mean())
+            check(r <= 2.0, f"{k} per-CTA work max/mean {r:.3f} <= 2{tag}")
 
         k1 = lambda: fr.cull_reduce(words, lo, hi, grid.r, n_tt, n_pt, tb)
         p1 = lambda: fr._cull_reduce_plain(words, lo, hi, grid.r, n_tt, n_pt, tb)
@@ -387,16 +452,20 @@ def main() -> int:
         xfeat, centers = tf.tile_points_centered_direct_t(
             grid.theta, grid.phi, grid.r, pcam, tp, n_tt, n_pt, n_ch)
         xfeat, centers = xfeat.contiguous(), centers.contiguous()
-        geo = fr.RSortGeometry(n_tt, n_pt, n_ch, sp.t_chunk, sp.g_tile, s_ang)
         wflat = tiles.words.reshape(-1).contiguous()
         table = tiles.table.contiguous()
         k3 = lambda: fr.rsort_fwd(xfeat, centers, table, wflat, tiles.fwd,
                                   tiles.n_items, geo, c)
         p3 = lambda: fr._rsort_fwd_plain(xfeat, centers, table, wflat, tiles.fwd,
                                          tiles.n_items, geo, c)
-        o3, r3 = k3(), p3()
+        (o3, sched), r3 = fr._rsort_fwd_launch(xfeat, centers, table, wflat, tiles.fwd,
+                                               tiles.n_items, geo, c), p3()
         e3 = rel_l2(o3, r3)
         check(e3 <= 1e-5, f"K3 rsort_fwd rel_l2 {e3:.3e} <= 1e-5{tag}")
+        check(torch.equal(sched, fr._fwd_groups_plain(tiles.fwd, tiles.n_items, geo,
+                                                      fr.FWD_GROUP_ITEMS)),
+              f"K3 schedule built on the card == plain builder{tag}")
+        check(torch.equal(k3(), o3), f"K3 second launch equals the first bit for bit{tag}")
         # Per (row, sample) pair: the 10-term form, the exp, C multiply-adds.
         rows["rsort_fwd"] = dict(
             max_abs_err=float((o3 - r3).abs().max()), rel_l2=e3,
@@ -411,7 +480,12 @@ def main() -> int:
                                   tiles.n_items, go, geo, c)
         p4 = lambda: fr._rsort_bwd_plain(xfeat, centers, table, wflat, tiles.bwd,
                                          tiles.n_items, go, geo, c)
-        o4, r4 = k4(), p4()
+        (o4, off), r4 = fr._rsort_bwd_launch(xfeat, centers, table, wflat, tiles.bwd,
+                                             tiles.n_items, go, geo, c), p4()
+        check(torch.equal(off, fr._bwd_unit_offsets_plain(tiles.bwd, tiles.n_items,
+                                                          fr.BWD_UNIT_BINS)),
+              f"K4 unit offsets built on the card == plain builder{tag}")
+        check(torch.equal(k4(), o4), f"K4 second launch equals the first bit for bit{tag}")
         visited = tiles.blk_has_work.repeat_interleave(sp.g_tile)
         e4 = rel_l2(o4[visited], r4[visited])
         check(e4 <= 1e-4, f"K4 rsort_bwd rel_l2 {e4:.3e} <= 1e-4 (visited blocks){tag}")

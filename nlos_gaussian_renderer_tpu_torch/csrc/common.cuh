@@ -118,6 +118,44 @@ __device__ __forceinline__ float edge_z(const SectionTerms& r, float s) {
   return MUL(r.shq, ADD(s, r.shift));
 }
 
+// p = exp(min(-q/2, 0)) as ex2.approx.ftz (one MUFU op, max rel error
+// 2^-22) of the argument pre-scaled by log2(e): min(q * (-log2(e)/2), 0).
+// The scaling rounds once, so p carries a relative error of about
+// |log(p)| * 2^-24 beside ex2's: below 1e-6 for every p above 1e-6, and
+// results below 2^-126 flush to 0. libdevice's expf spends ~8 instructions
+// on the same value; the form before it stays in the plain order.
+__device__ __forceinline__ float exp_neg_half(float q) {
+  const float a = fminf(__fmul_rn(q, -0.72134752044448170f), 0.f);
+  float p;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(a));
+  return p;
+}
+
+// Asynchronous global -> shared copies (sm_80+ `cp.async`): 16 bytes through
+// L2 only, or 4 bytes; completion is per thread, by commit group, so a
+// __syncthreads after the wait publishes every thread's copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // First index in [lo, hi) whose key is >= k, for keys ascending in the range.
 template <typename KeyFn>
 __device__ __forceinline__ int first_at_least(int lo, int hi, int k, KeyFn key) {

@@ -37,8 +37,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "cull_reduce": [_P] * 6 + [_I] * 7 + [_P],
     "build_work_lists": [_P] * 2 + [_I] * 5 + [_P] * 6 + [_P],
-    "rsort_fwd": [_P] * 7 + [_I] * 12 + [_P],
-    "rsort_bwd": [_P] * 8 + [_I] * 13 + [_P],
+    "rsort_fwd": [_P] * 10 + [_I] * 15 + [_P],
+    "rsort_bwd": [_P] * 10 + [_I] * 15 + [_P],
     "analytic_fwd": [_P] * 8 + [_I] * 12 + [_P],
     "analytic_bwd": [_P] * 9 + [_I] * 13 + [_P],
     "field_fwd": [_P] * 5 + [_I] * 4 + [_P],

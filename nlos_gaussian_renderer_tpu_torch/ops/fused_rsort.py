@@ -487,6 +487,99 @@ def _center_transform_t(dgp, x0, y0, z0):
     )
 
 
+# K3 / K4 work units -------------------------------------------------------------
+#
+# The field kernels split the work lists into units of bounded size, so no
+# CTA carries much more than the mean (an item of the backward list can
+# span a whole 200-bin chunk, a tile of the forward list can hold 100+
+# items). Each kernel builds its schedule on the device (no host read, a
+# static capacity); the plain builders below compute the same arrays.
+
+BWD_UNIT_BINS = 8  # K4: at most this many bins of one item per unit
+FWD_GROUP_ITEMS = 2  # K3: at most this many items of one tile per unit
+FWD_SLICE = 256  # K3: samples per unit (one per thread)
+_DEAD_KEY = (1 << 31) - 1
+
+
+def bwd_unit_capacity(w: int, t_chunk: int, unit_bins: int) -> int:
+    """Static bound on the K4 units of a W-item backward list."""
+    return w * _cdiv(t_chunk, unit_bins)
+
+
+def _bwd_unit_offsets_plain(bwd, n_items, unit_bins: int):
+    """(W + 1,) int32 exclusive prefix of each backward item's unit count
+    ceil((bh - bl + 1) / unit_bins), 0 past `n_items`; the last entry is
+    the unit total. Unit u with off[i] <= u < off[i + 1] covers bins
+    [bl + k U, min(bl + (k + 1) U - 1, bh)] of item i, k = u - off[i]."""
+    w = bwd.shape[1]
+    live = torch.arange(w, device=bwd.device) < n_items.to(bwd.device)[0]
+    cnt = torch.where(live, (bwd[5] - bwd[4] + unit_bins) // unit_bins, 0).long()
+    return torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)]).to(torch.int32)
+
+
+def bwd_units(unit_off, bwd, unit_bins: int):
+    """(item, bin_lo, bin_hi) int64 of every K4 unit, in unit order."""
+    off = unit_off.long()
+    cnt = off[1:] - off[:-1]
+    item = torch.repeat_interleave(torch.arange(cnt.shape[0], device=off.device), cnt)
+    lo = bwd[4].long()[item] + (torch.arange(item.shape[0], device=off.device)
+                                - off[item]) * unit_bins
+    return item, lo, torch.minimum(lo + unit_bins - 1, bwd[5].long()[item])
+
+
+def fwd_group_capacity(w: int, t_tot: int, group_items: int) -> int:
+    """Static bound on the K3 item groups of a W-item forward list: every
+    non-empty tile adds at most one partial group."""
+    return _cdiv(w, group_items) + min(t_tot, w)
+
+
+def _fwd_groups_plain(fwd, n_items, geo: RSortGeometry, group_items: int):
+    """(6, G + 1) int32 schedule of K3, G = `fwd_group_capacity`.
+
+    Each tile's items (contiguous in the forward list) are cut into groups
+    of `group_items` consecutive items from the tile's first. Column g < n
+    groups holds [first item, end item, key = t * n_ch + j, first slice,
+    last slice, unit offset]: the slices (FWD_SLICE samples) the group's
+    bins touch, and the exclusive prefix of their counts. Units are (group,
+    slice) pairs in that order. Dead columns, and column G, hold [0, 0,
+    2^31 - 1, 0, -1, unit total]."""
+    dev = fwd.device
+    g_cap = fwd_group_capacity(fwd.shape[1], geo.t_ang * geo.n_ch, group_items)
+    n = int(n_items[0])
+    key = (fwd[0, :n].long() * geo.n_ch + fwd[1, :n].long())
+    i = torch.arange(n, device=dev)
+    heads = i[(i - torch.searchsorted(key, key)) % group_items == 0]
+    end = torch.minimum(heads + group_items,
+                        torch.searchsorted(key, key[heads], right=True))
+    s_lo = fwd[4, :n].long() * geo.s_ang // FWD_SLICE
+    s_hi = ((fwd[5, :n].long() + 1) * geo.s_ang - 1) // FWD_SLICE
+    idx = heads[:, None] + torch.arange(group_items, device=dev)[None, :]
+    inside = idx < end[:, None]
+    idx = torch.clamp(idx, max=max(n - 1, 0))
+    g_lo = torch.where(inside, s_lo[idx], 1 << 30).amin(1)
+    g_hi = torch.where(inside, s_hi[idx], -1).amax(1)
+    units = torch.cumsum(g_hi - g_lo + 1, 0)
+    total = int(units[-1]) if heads.numel() else 0
+    ng = heads.shape[0]
+    sched = torch.zeros((6, g_cap + 1), dtype=torch.int64, device=dev)
+    sched[2] = _DEAD_KEY
+    sched[4] = -1
+    sched[5] = total
+    for row, v in enumerate((heads, end, key[heads], g_lo, g_hi,
+                             units - (g_hi - g_lo + 1))):
+        sched[row, :ng] = v
+    return sched.to(torch.int32)
+
+
+def fwd_units(sched):
+    """(group, slice) int64 of every K3 unit, in unit order."""
+    off = sched[5].long()
+    cnt = off[1:] - off[:-1]
+    group = torch.repeat_interleave(torch.arange(cnt.shape[0], device=off.device), cnt)
+    k = torch.arange(group.shape[0], device=off.device) - off[group]
+    return group, sched[3].long()[group] + k
+
+
 def _field_args(xfeat, centers, table, words, lists, n_items, geo, c):
     t_tot, fdim, s = xfeat.shape
     if fdim != FDIM or s != geo.s_ang * geo.t_chunk:
@@ -525,14 +618,34 @@ def rsort_fwd(xfeat, centers, table, words, fwd, n_items, geo: RSortGeometry,
     """
     if on_cpu(xfeat, centers, table, words, fwd, n_items):
         return _rsort_fwd_plain(xfeat, centers, table, words, fwd, n_items, geo, c)
+    return _rsort_fwd_launch(xfeat, centers, table, words, fwd, n_items, geo, c)[0]
+
+
+def _rsort_fwd_launch(xfeat, centers, table, words, fwd, n_items, geo, c):
+    """K3 on CUDA tensors: (out, schedule). The schedule is the (6, G + 1)
+    int32 array of `_fwd_groups_plain` as the kernel built it. Scratch at
+    the bench scene (W 644, g_tile 256, 100 slices, G 330): the rows 7.9
+    MB, the partial fields 34 MB, of which the live units (~2,900) touch
+    3 MB; at W 12,288 (the largest re-fit there, see `_rsort_bwd_launch`)
+    151 MB and 630 MB."""
     args = _field_args(xfeat, centers, table, words, fwd, n_items, geo, c)
-    out = torch.zeros((xfeat.shape[0], c, xfeat.shape[2]), dtype=torch.float32,
-                      device=xfeat.device)
+    t_tot, _, s = xfeat.shape
+    w = fwd.shape[1]
+    g_cap = fwd_group_capacity(w, t_tot, FWD_GROUP_ITEMS)
+    n_units = g_cap * _cdiv(s, FWD_SLICE)
+    f32 = dict(dtype=torch.float32, device=xfeat.device)
+    out = torch.empty((t_tot, c, s), **f32)
+    # The schedule, then the unit -> group map.
+    sched = torch.empty(6 * (g_cap + 1) + n_units, dtype=torch.int32,
+                        device=xfeat.device)
+    rows = torch.empty((w, geo.g_tile, 12), **f32)
+    partial = torch.empty((n_units, c, FWD_SLICE), **f32)
     KERNELS["rsort_fwd"].launch(
         ptr(xfeat), ptr(centers), ptr(table), ptr(words), ptr(fwd),
-        ptr(n_items), ptr(out), *args,
+        ptr(n_items), ptr(out), ptr(sched), ptr(rows), ptr(partial), *args,
+        FWD_SLICE, FWD_GROUP_ITEMS, g_cap,
     )
-    return out
+    return out, sched[:6 * (g_cap + 1)].reshape(6, g_cap + 1)
 
 
 def rsort_bwd(xfeat, centers, table, words, bwd, n_items, go, geo: RSortGeometry,
@@ -547,15 +660,34 @@ def rsort_bwd(xfeat, centers, table, words, bwd, n_items, go, geo: RSortGeometry
     """
     if on_cpu(xfeat, centers, table, words, bwd, n_items, go):
         return _rsort_bwd_plain(xfeat, centers, table, words, bwd, n_items, go, geo, c)
+    return _rsort_bwd_launch(xfeat, centers, table, words, bwd, n_items, go, geo, c)[0]
+
+
+def _rsort_bwd_launch(xfeat, centers, table, words, bwd, n_items, go, geo, c):
+    """K4 on CUDA tensors: (dtable, unit offsets). The offsets are the (W +
+    1,) int32 array of `_bwd_unit_offsets_plain` as the kernel built it.
+    The partial scratch is W * ceil(t_chunk / U) * g_tile * 40 C bytes,
+    taken from the caching allocator on every call. At the bench scene (W
+    644, t_chunk 200, U 8: 16,100 units) it is 165 MB at C = 1, of which the
+    live units (~1,450) touch 15 MB. It grows with W: the largest W a
+    grow-only re-fit can reach there (every one of 903 blocks in each of the
+    8 tiles, x 1.25, bucketed: 12,288) gives 3.1 GB."""
     args = _field_args(xfeat, centers, table, words, bwd, n_items, geo, c)
     check_tensor(go, "go", torch.float32, (xfeat.shape[0], c, xfeat.shape[2]))
-    dtable = torch.zeros_like(table)
+    w = bwd.shape[1]
+    cap = bwd_unit_capacity(w, geo.t_chunk, BWD_UNIT_BINS)
+    dtable = torch.empty_like(table)
+    # Unit offsets, then the unit -> item map.
+    units = torch.empty(w + 1 + cap, dtype=torch.int32, device=table.device)
+    partial = torch.empty((cap, FDIM * c, geo.g_tile), dtype=torch.float32,
+                          device=table.device)
     kb = table.shape[0] // geo.g_tile
     KERNELS["rsort_bwd"].launch(
         ptr(xfeat), ptr(centers), ptr(table), ptr(words), ptr(bwd),
-        ptr(n_items), ptr(go), ptr(dtable), *args, kb,
+        ptr(n_items), ptr(go), ptr(dtable), ptr(units), ptr(partial), *args,
+        kb, BWD_UNIT_BINS, cap,
     )
-    return dtable
+    return dtable, units[:w + 1]
 
 
 _PLAIN_BATCH_ELEMENTS = 1 << 25  # per (batch, g_tile, S) temporary: 128 MiB

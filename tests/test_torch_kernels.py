@@ -5,8 +5,11 @@ On the card: `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
 (the suite conftest imports jax, which the card's machine does not have).
 Shapes are the small ones of tests/test_torch_rsort.py and
 tests/test_torch_tile.py, one and two channels, one and several radial
-chunks, an overflowed work list, and tile lists with a zero count and a
-partial last 128-row block. Tolerances: K1/K2 outputs exactly equal; K3, K5
+chunks, an overflowed work list, tile lists with a zero count and a
+partial last 128-row block, and for K3/K4 g_tile 32-512 and skewed work
+lists (one block over every bin of every tile, one tile holding every item,
+no item), with their on-card schedules held to the plain builders and a
+second launch held to the first bit for bit. Tolerances: K1/K2 outputs exactly equal; K3, K5
 and K7 rel_l2 <= 1e-5; K4, K6 and K8 rel_l2 <= 1e-4 (the kernels evaluate
 the forms and section terms in the plain versions' operation order; only
 the order of the sums over Gaussians, bins and samples differs); K8 rows at
@@ -115,24 +118,82 @@ def test_cull_reduce_and_build_work_lists_equal_plain(dev, t_chunk, w_max):
     assert bool(t.overflowed) == (w_max == 16)
 
 
-@pytest.mark.parametrize("occ", [False, True])
-@pytest.mark.parametrize("t_chunk", [8, 80])
-def test_rsort_fwd_and_bwd_match_plain(dev, occ, t_chunk):
-    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80)
+def _skewed_lists(x, spec, case):
+    """Work lists (fwd, bwd, n_items) of the cull in `x`, or, for a skewed
+    case, rebuilt from its (block, tile) bin ranges: one block's items cover
+    every bin of every tile; every item in one output tile (t_chunk 80: one
+    chunk), the list exactly full; no item at all."""
+    t, geo = x["tiles"], x["geo"]
+    if case == "cull":
+        return t.fwd, t.bwd, t.n_items
+    kb = t.words.shape[0] // spec.g_tile
+    cols = [t.table[:, x["n_gw"] + q].reshape(kb, -1).contiguous() for q in (1, 2)]
+    tb = geo.n_ch * spec.t_chunk
+    alo, ahi = fr._cull_reduce_plain(t.words.reshape(kb, -1), *cols, x["grid"].r,
+                                     geo.n_tt, geo.n_pt, tb)
+    w = spec.w_max
+    if case == "one_block_all_bins":
+        b = int(torch.nonzero(t.blk_has_work)[0, 0])
+        alo[b], ahi[b] = 0, tb - 1
+    elif case == "one_tile_all_items":
+        alo[:, 1:], ahi[:, 1:] = tb, -1
+        w = int((ahi[:, 0] >= 0).sum())
+    else:
+        alo[:], ahi[:] = tb, -1
+    bwd, fwd, n_raw, _, _ = fr._build_work_lists_plain(alo, ahi, geo.n_ch, spec.t_chunk, w)
+    return fwd, bwd, torch.clamp(n_raw, max=w)
+
+
+@pytest.mark.parametrize("occ,t_chunk,g_tile,case", [
+    (False, 8, 32, "cull"), (True, 8, 32, "cull"), (False, 80, 32, "cull"),
+    (True, 80, 32, "cull"), (False, 80, 128, "cull"), (True, 8, 512, "cull"),
+    (False, 8, 32, "one_block_all_bins"), (True, 80, 128, "one_block_all_bins"),
+    (False, 80, 32, "one_tile_all_items"), (True, 80, 128, "one_tile_all_items"),
+    (False, 8, 32, "empty"),
+])
+def test_rsort_fwd_and_bwd_match_plain(dev, occ, t_chunk, g_tile, case):
+    """K3 rel_l2 <= 1e-5 and K4 <= 1e-4 (visited blocks; exact zeros
+    elsewhere) against the plain versions; the schedules the kernels build
+    on the card equal the plain builders'; a second launch equals the first
+    bit for bit."""
+    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80,
+                         g_tile=g_tile)
     x = _inputs(dev, spec, occ=occ)
     t, geo, c = x["tiles"], x["geo"], x["c"]
+    assert c == (2 if occ else 1)
+    fwd, bwd, n_items = _skewed_lists(x, spec, case)
+    n = int(n_items[0])
+    assert (n == 0) == (case == "empty")
+    if case == "one_tile_all_items":
+        assert n == fwd.shape[1] and bool((fwd[0, :n] == 0).all())
     words = t.words.reshape(-1).contiguous()
     args = (x["xfeat"], x["centers"], t.table.detach().contiguous(), words)
-    out = fr.rsort_fwd(*args, t.fwd, t.n_items, geo, c)
-    ref = fr._rsort_fwd_plain(*args, t.fwd, t.n_items, geo, c)
+    before = cuda_build.launch_counts()
+    out, sched = fr._rsort_fwd_launch(*args, fwd, n_items, geo, c)
+    ref = fr._rsort_fwd_plain(*args, fwd, n_items, geo, c)
     assert out.shape == (geo.t_ang * geo.n_ch, c, geo.s_ang * spec.t_chunk)
-    assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    assert torch.equal(sched, fr._fwd_groups_plain(fwd, n_items, geo, fr.FWD_GROUP_ITEMS))
+    if n:
+        assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    else:
+        assert (out == 0).all()
+    assert torch.equal(fr.rsort_fwd(*args, fwd, n_items, geo, c), out)
     go = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(0),
                      device=dev)
-    dt = fr.rsort_bwd(*args, t.bwd, t.n_items, go, geo, c)
-    dref = fr._rsort_bwd_plain(*args, t.bwd, t.n_items, go, geo, c)
-    assert dref.abs().max() > 0 and rel_l2(dt, dref) <= 1e-4
-    assert (dt[:, fr.FDIM + c:] == 0).all()
+    dt, off = fr._rsort_bwd_launch(*args, bwd, n_items, go, geo, c)
+    dref = fr._rsort_bwd_plain(*args, bwd, n_items, go, geo, c)
+    assert torch.equal(off, fr._bwd_unit_offsets_plain(bwd, n_items, fr.BWD_UNIT_BINS))
+    kb = t.words.shape[0] // g_tile
+    visited = torch.zeros(kb, dtype=torch.bool, device=dev)
+    visited[bwd[2, :n].long()] = True
+    rows = visited.repeat_interleave(g_tile)
+    if n:
+        assert dref.abs().max() > 0 and rel_l2(dt[rows], dref[rows]) <= 1e-4
+    assert (dt[~rows] == 0).all() and (dt[:, fr.FDIM + c:] == 0).all()
+    assert torch.equal(fr.rsort_bwd(*args, bwd, n_items, go, geo, c), dt)
+    after = cuda_build.launch_counts()
+    for name in ("rsort_fwd", "rsort_bwd"):
+        assert after[name] == before[name] + 2
 
 
 @pytest.mark.parametrize("occ", [False, True])
@@ -295,3 +356,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         mb.worklist_add(fb, cnt.expand(2).contiguous(), x8)
     with pytest.raises(ValueError):
         mb.worklist_add(fb, cnt, x8[..., :4].contiguous())
+
+
+def test_rsort_fwd_refuses_another_slice_width(dev, monkeypatch):
+    """K3's scratch is sized by `FWD_SLICE`; the kernel indexes by its own
+    slice width and refuses a launch where the two differ."""
+    x = _inputs(dev, SPEC)
+    t, geo = x["tiles"], x["geo"]
+    monkeypatch.setattr(fr, "FWD_SLICE", fr.FWD_SLICE // 2)
+    with pytest.raises(RuntimeError, match="rsort_fwd: CUDA error"):
+        fr.rsort_fwd(x["xfeat"], x["centers"], t.table.contiguous(),
+                     t.words.reshape(-1).contiguous(), t.fwd, t.n_items, geo, x["c"])
