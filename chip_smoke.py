@@ -28,14 +28,16 @@ Phases:
      main paths' shapes, centre camera (K1/K2 exactly equal; K3, K5, K7
      rel_l2 <= 1e-5; K4, K6 rel_l2 <= 1e-4 over visited blocks; K8 <= 1e-4
      on rows below each tile's count and exactly 0 past it), time both with
-     CUDA events, and print each kernel's work count and roofline bound;
+     CUDA events, and print each kernel's work count and roofline bound
+     (K5/K6 past the section head: only the (row, ray) pairs whose
+     exp(-phi/2) is nonzero, counted from the plain section terms);
      then K1-K4 once more, at the spec the tools tune (t_chunk 32, gate_bins
      4: seven radial chunks), with the same gates (the kernels line keeps
-     the train spec's rows). At both specs, for K3 and K4: the (row,
-     sample) pairs each CTA walks, from the lists, before and with the
-     work units (max/mean <= 2 with them), the schedule each builds on the
-     card equal to its plain builder, and a second launch equal to the
-     first bit for bit;
+     the train spec's rows). At both specs for K3 and K4, and at the train
+     spec for K5 and K6: the work each CTA walks, from the lists, before
+     and with the work units (max/mean <= 2 with them), the schedule each
+     builds on the card equal to its plain builder, and a second launch
+     equal to the first bit for bit;
   4. hold the 100k forward histograms to the Gaussian-chunked dense
      reference (`pallas_rsort` and `pallas` rel_l2 < 2.5e-3), and
      `pallas_analytic` to the chunked dense `analytic` backend (< 2.5e-3)
@@ -56,7 +58,9 @@ Phases:
   7. K9 (`worklist_add`) against its plain version at the seven microbench
      shapes and at a list with cnt < w: bit for bit, blocks no item names
      exactly 0; the plain version timed, each shape's bound printed (this
-     phase runs right after phase 3);
+     phase runs right after phase 3), then `init_scene`'s KNN scale init:
+     the exact chunked KNN on the card against the CPU at 8192 points (rel
+     <= 1e-6) and the default call at 100k points, timed;
   8. the tools at JAX's sizes, counters reset before and read after: sort,
      scatter-add, the K9 microbenchmark (K9's and the `index_add_`
      yardstick's times, beside phase 7's bounds), the rsort step's
@@ -200,13 +204,67 @@ def bound(name, work, n_bytes, flops, mufu):
     return ms, ("bytes" if what == "bytes" else "operations"), what
 
 
+def k5_unit_bins(fwd, n_items, geo):
+    """(units,) float64: the (item, bin) pairs each K5 unit covers, from the
+    plain schedule (a unit's (row, bin, ray) triples are g_tile * S_ang
+    times as many)."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
+
+    u_f = fa.AN_FWD_SLAB_BINS
+    n = int(n_items[0])
+    sched = fr._fwd_groups_plain(fwd, n_items, geo, fa.AN_FWD_GROUP_ITEMS, u_f).long()
+    ng = int((sched[2] != fr._DEAD_KEY).sum())
+    items = torch.arange(n)
+    group = torch.searchsorted(sched[0, :ng], items, right=True) - 1
+    g_lo = sched[3][group]
+    bl, bh = fwd[4, :n].long(), fwd[5, :n].long()
+    k_lo, k_hi = (bl - g_lo) // u_f, (bh - g_lo) // u_f
+    cnt = k_hi - k_lo + 1
+    it = torch.repeat_interleave(items, cnt)
+    k = torch.repeat_interleave(k_lo - (torch.cumsum(cnt, 0) - cnt), cnt) + torch.arange(
+        it.shape[0])
+    b0 = g_lo[it] + k * u_f
+    bins = torch.minimum(bh[it], b0 + u_f - 1) - torch.maximum(bl[it], b0) + 1
+    return torch.bincount(sched[5][group[it]] + k, weights=bins.double(),
+                          minlength=int(sched[5, -1]))
+
+
+def bwd_unit_bins(bwd, n_items, unit_bins):
+    """(units,) float64: the bins each K4 or K6 unit covers."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
+
+    off = fr._bwd_unit_offsets_plain(bwd, n_items, unit_bins)
+    _, lo, hi = fr.bwd_units(off, bwd, unit_bins)
+    return (hi - lo + 1).double()
+
+
+def live_pairs(an, lists, n_items, geo, c):
+    """(items,) float64: each item's (member row, ray) pairs whose
+    exp(-phi/2) is nonzero in f32, from the plain version's section terms
+    (`fused_analytic._section_terms`). Every other pair adds exact zeros to
+    the K5 output and to K6's A0, S1, S2 and dw, so the functions need no
+    edge of it."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
+
+    out = [torch.zeros(0, dtype=torch.float64, device=lists.device)]
+    for i0, i1 in fa._batches(int(n_items[0]), geo):
+        _, _, (qa, qb, qc), _, memb, *_ = fa._an_items(*an, lists, i0, i1, geo, c)
+        eh = fa._section_terms(qa, qb, qc)[3]
+        out.append(((eh != 0) & memb[..., None]).sum((1, 2)).double())
+    return torch.cat(out)
+
+
 def cta_work(fwd, bwd, n_items, geo):
-    """(row, sample) pairs each CTA of K3 and K4 walks, from the work lists:
-    {scheme: tensor over the CTAs with work}. 'before' is the schedule the
-    kernels had before their work units (K4 one CTA per Gaussian block; K3
-    one CTA per (tile, slice) walking the tile's items that touch the
-    slice), 'units' the present one (K4 one CTA per (unit, 256-row chunk);
-    K3 one CTA per (group, slice) unit)."""
+    """(row, sample) pairs each CTA of K3 and K4, and (row, bin, ray)
+    triples each CTA of K5 and K6 walks, from the work lists: {scheme:
+    tensor over the CTAs with work}. 'before' is the schedule K3/K4 had
+    before their work units (K4 one CTA per Gaussian block; K3 one CTA per
+    (tile, slice) walking the tile's items that touch the slice), which K6
+    and K5 kept until theirs; 'units' the present one (K4 one CTA per
+    (unit, 256-row chunk); K3 one CTA per (group, slice) unit; K6 as K4 at
+    its own unit width; K5 one CTA per (group, slab) unit, 128 rays)."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
     from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
 
     n = int(n_items[0])
@@ -217,10 +275,9 @@ def cta_work(fwd, bwd, n_items, geo):
     samples = (bwd[5, :n] - bwd[4, :n] + 1).double() * s_ang
     per_block = torch.bincount(bwd[2, :n].long(), weights=samples)
     out["K4 before"] = per_block[per_block > 0] * gt
-    off = fr._bwd_unit_offsets_plain(bwd, n_items.cpu(), fr.BWD_UNIT_BINS)
-    _, lo, hi = fr.bwd_units(off, bwd, fr.BWD_UNIT_BINS)
-    out["K4 units"] = ((hi - lo + 1).double() * s_ang * min(gt, 256)).repeat(
-        fr._cdiv(gt, 256))
+    for k, u_b in (("K4", fr.BWD_UNIT_BINS), ("K6", fa.AN_BWD_UNIT_BINS)):
+        out[f"{k} units"] = (bwd_unit_bins(bwd, n_items.cpu(), u_b) * s_ang
+                             * min(gt, 256)).repeat(fr._cdiv(gt, 256))
 
     def slices_of(items):
         """(item, slice) pairs: the slices each item's bins touch."""
@@ -249,6 +306,9 @@ def cta_work(fwd, bwd, n_items, geo):
     per_unit = torch.bincount(unit, minlength=n_units)
     _, u_slc = fr.fwd_units(sched)
     out["K3 units"] = (per_unit.double() * pairs(u_slc))[per_unit > 0]
+
+    bins = k5_unit_bins(fwd, n_items.cpu(), geo)
+    out["K5 units"] = bins[bins > 0] * gt * s_ang
     return out
 
 
@@ -305,6 +365,7 @@ def main() -> int:
     from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
     from nlos_gaussian_renderer_tpu_torch.data.synthetic import make_scan_grid
     from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+    from nlos_gaussian_renderer_tpu_torch.models import scene as tscene
     from nlos_gaussian_renderer_tpu_torch.ops import fused as tf
     from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
     from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
@@ -414,13 +475,17 @@ def main() -> int:
         triples = float((rows_it * bins_it * s_ang).sum())
         c = w.shape[1]
         rows = {}
-        geo = fr.RSortGeometry(n_tt, n_pt, n_ch, sp.t_chunk, sp.g_tile, s_ang)
+        geo = fr.RSortGeometry(n_tt, n_pt, n_ch, sp.t_chunk, sp.g_tile, s_ang, sp.t_phi)
         work = cta_work(tiles.fwd, tiles.bwd, tiles.n_items, geo)
+        sizes = {"K3": f"I {fr.FWD_GROUP_ITEMS}", "K4": f"U {fr.BWD_UNIT_BINS}",
+                 "K5": f"I {fa.AN_FWD_GROUP_ITEMS}, U {fa.AN_FWD_SLAB_BINS}",
+                 "K6": f"U {fa.AN_BWD_UNIT_BINS}"}
         for name, v in work.items():
-            log(f"{name} (U {fr.BWD_UNIT_BINS}, I {fr.FWD_GROUP_ITEMS}){tag}: {v.numel()} "
-                f"CTAs with work, (row, sample) pairs a CTA: mean {float(v.mean()):.4g}, "
-                f"max {float(v.max()):.4g}, max/mean {float(v.max() / v.mean()):.3f}")
-        for k in ("K3", "K4"):
+            log(f"{name} ({sizes[name[:2]]}){tag}: {v.numel()} CTAs with work, work a CTA "
+                f"(K3/K4 (row, sample) pairs, K5/K6 (row, bin, ray) triples): mean "
+                f"{float(v.mean()):.4g}, max {float(v.max()):.4g}, max/mean "
+                f"{float(v.max() / v.mean()):.3f}")
+        for k in ("K3", "K4") + (("K5", "K6") if not tag else ()):
             r = float(work[f"{k} units"].max() / work[f"{k} units"].mean())
             check(r <= 2.0, f"{k} per-CTA work max/mean {r:.3f} <= 2{tag}")
 
@@ -520,39 +585,67 @@ def main() -> int:
             an = (*fa.analytic_operands(grid, pcam, spec), table, wflat)
             k5 = lambda: fa.analytic_fwd(*an, tiles.fwd, tiles.n_items, geo, c)
             p5 = lambda: fa._analytic_fwd_plain(*an, tiles.fwd, tiles.n_items, geo, c)
-            o5, r5 = k5(), p5()
+            (o5, sched5), r5 = fa._analytic_fwd_launch(*an, tiles.fwd, tiles.n_items, geo,
+                                                       c), p5()
             e5 = rel_l2(o5, r5)
             check(e5 <= 1e-5, f"K5 analytic_fwd rel_l2 {e5:.3e} <= 1e-5")
-            # Per (row, ray): three 10-term forms and the section terms (rcp,
-            # sqrt, exp); per (row, bin, ray): two erff (libdevice: ~7 FMA
-            # and one MUFU ex2 each), the difference and C multiply-adds.
+            check(torch.equal(sched5, fr._fwd_groups_plain(tiles.fwd, tiles.n_items, geo,
+                                                        fa.AN_FWD_GROUP_ITEMS, fa.AN_FWD_SLAB_BINS)),
+                  "K5 schedule built on the card == plain builder")
+            check(torch.equal(k5(), o5), "K5 second launch equals the first bit for bit")
+            # The least work of K5 and K6: for every (member row, ray) pair
+            # the three 10-term forms (60 FP32) and the section head up to
+            # exp(-phi/2) (6 FP32; rcp, ex2: 2 MUFU); the rest only for the
+            # live pairs, whose exp(-phi/2) is nonzero: the section tail (4;
+            # sqrt: 1 MUFU), per edge (bins + 1 of the item) its argument
+            # and one erff (16; one ex2: 1 MUFU), per (row, bin, ray) triple
+            # the difference, the prefactor and C multiply-adds.
+            def live_work(name, lists):
+                """(live pairs, live edges, live triples) of a list, logged."""
+                live = live_pairs(an, lists, tiles.n_items, geo, c)
+                n_it = int(tiles.n_items[0])
+                bins_n = (lists[5, :n_it] - lists[4, :n_it] + 1).double()
+                pairs_, tri = float(live.sum()), float((live * bins_n).sum())
+                log(f"{name}: live (member row, ray) pairs {pairs_:.4g} of {row_rays:.4g} "
+                    f"({pairs_ / row_rays:.4f}), live edges {tri + pairs_:.4g}, live "
+                    f"triples {tri:.4g} of {triples:.4g}")
+                return pairs_, tri + pairs_, tri
+
+            live_n, live_edges, live_tri = live_work("analytic_fwd", tiles.fwd)
             kernel_rows["analytic_fwd"] = dict(
                 max_abs_err=float((o5 - r5).abs().max()), rel_l2=e5,
                 ms=cuda_time(k5, 10), plain_ms=cuda_time(p5, 3),
                 bound=bound("analytic_fwd", f"{row_rays:.4g} (row, ray) pairs, "
-                            f"{triples:.4g} (row, bin, ray) triples",
-                            nbytes(*an, tiles.fwd, o5),
-                            row_rays * 70 + triples * (34 + 2 * c),
-                            row_rays * 3 + triples * 2))
+                            f"{live_n:.4g} live", nbytes(*an, tiles.fwd, o5),
+                            row_rays * 66 + live_n * 4 + live_edges * 16
+                            + live_tri * (2 + 2 * c),
+                            row_rays * 2 + live_n + live_edges))
 
             go5 = torch.randn(o5.shape, generator=gen, device=dev)
             k6 = lambda: fa.analytic_bwd(*an, tiles.bwd, tiles.n_items, go5, geo, c)
             p6 = lambda: fa._analytic_bwd_plain(*an, tiles.bwd, tiles.n_items, go5, geo, c)
-            o6, r6 = k6(), p6()
+            (o6, off6), r6 = fa._analytic_bwd_launch(*an, tiles.bwd, tiles.n_items, go5,
+                                                     geo, c), p6()
             e6 = rel_l2(o6[visited], r6[visited])
             check(e6 <= 1e-4, f"K6 analytic_bwd rel_l2 {e6:.3e} <= 1e-4 (visited blocks)")
             check(bool((o6[~visited] == 0).all()), "K6 leaves unvisited blocks zero")
-            # Per (row, ray): the forms, section terms, and the 3 x 10
-            # cotangent contraction; per edge (bins + 1): one erff and one
-            # expf; per triple: the moment sums.
+            check(torch.equal(off6, fr._bwd_unit_offsets_plain(tiles.bwd, tiles.n_items,
+                                                              fa.AN_BWD_UNIT_BINS)),
+                  "K6 unit offsets built on the card == plain builder")
+            check(torch.equal(k6(), o6), "K6 second launch equals the first bit for bit")
+            # As K5's, with per live pair the moments (10) and the 3 x 10
+            # cotangent contraction (60), per live edge also exp(-z^2) (2;
+            # ex2: 1 MUFU), and per live triple the difference and
+            # prefactor, dt and dw (4C) and the sums A0, Ae, As (6).
+            live_n, live_edges, live_tri = live_work("analytic_bwd", tiles.bwd)
             kernel_rows["analytic_bwd"] = dict(
                 max_abs_err=float((o6 - r6).abs().max()), rel_l2=e6,
                 ms=cuda_time(k6, 10), plain_ms=cuda_time(p6, 3),
                 bound=bound("analytic_bwd", f"{row_rays:.4g} (row, ray) pairs, "
-                            f"{triples:.4g} (row, bin, ray) triples",
-                            nbytes(*an, tiles.bwd, go5, o6),
-                            row_rays * (130 + 14) + triples * (14 + 8 + 4 * c),
-                            row_rays * 5 + triples * 2))
+                            f"{live_n:.4g} live", nbytes(*an, tiles.bwd, go5, o6),
+                            row_rays * 66 + live_n * 74 + live_edges * 18
+                            + live_tri * (8 + 4 * c),
+                            row_rays * 2 + live_n + live_edges * 2))
 
             # K7 / K8 at the pallas path's shapes: the tile cull with the
             # fitted k_max, the uncentred monomials, the gathered lists.
@@ -664,6 +757,33 @@ def main() -> int:
         return True
 
     worklist_vs_plain()
+
+    @phase("init_scene KNN scale init (card vs CPU at 8192 points, 100k timed)")
+    def knn_init():
+        rng = np.random.default_rng(5)
+        pts = (VOLUME_POSITION + rng.uniform(-0.3, 0.3, (N_GAUSSIANS, 3))).astype(np.float32)
+        sub = torch.as_tensor(pts[:8192])
+        d_card = tscene._knn_mean_dist2_exact(sub.to(dev)).cpu()
+        d_cpu = tscene._knn_mean_dist2_exact(sub)
+        err = float(((d_card - d_cpu).abs() / d_cpu).max())
+        check(err <= 1e-6, f"exact KNN on the card vs the CPU, 8192 points: max rel {err:.3e} "
+              f"<= 1e-6 (bit for bit: {torch.equal(d_card, d_cpu)})")
+        rho = np.full((N_GAUSSIANS, 1), 0.5, np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc = tscene.init_scene(pts, rho, VOLUME_POSITION - 0.3, VOLUME_POSITION + 0.3, 0,
+                               device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ls = sc.log_scales.detach()
+        check(bool(torch.isfinite(ls).all()) and ls.shape == (N_GAUSSIANS, 3),
+              "100k init_scene log_scales finite, shape (100000, 3)")
+        log(f"init_scene with the KNN scale init, 100k points on the card: {ms:.1f} ms "
+            f"(host clock, transfers included), mean scale "
+            f"{float(torch.exp(ls).mean()):.4e} m, on {card}")
+        return True
+
+    knn_init()
 
     @phase("100k forward histogram vs chunked dense")
     def forward_parity():

@@ -64,20 +64,7 @@ __global__ void __launch_bounds__(kScan)
                            const int* __restrict__ n_items, int w,
                            int unit_bins, int* __restrict__ unit_off,
                            int* __restrict__ unit_item) {
-  __shared__ int warp_sums[32];
-  const int n = n_items[0];
-  int carry = 0;
-  for (int base = 0; base < w; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int cnt =
-        i < n ? (bwd[5 * w + i] - bwd[4 * w + i] + unit_bins) / unit_bins : 0;
-    int total;
-    const int ex = block_exclusive_scan(cnt, warp_sums, total);
-    if (i < w) unit_off[i] = carry + ex;
-    for (int q = 0; q < cnt; ++q) unit_item[carry + ex + q] = i;
-    carry += total;
-  }
-  if (threadIdx.x == 0) unit_off[w] = carry;
+  bwd_unit_scan(bwd, n_items, w, unit_bins, unit_off, unit_item);
 }
 
 template <int C>

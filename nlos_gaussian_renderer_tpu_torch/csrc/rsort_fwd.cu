@@ -45,8 +45,6 @@
 // ~8 instructions fewer a pair than libdevice's expf; kernel vs plain
 // 1.5e-7 rel_l2 at the bench scene's centre camera (expf: 1.7e-7).
 
-#include <climits>
-
 #include "common.cuh"
 
 namespace {
@@ -55,59 +53,19 @@ constexpr int kSlice = 256;  // samples a unit, one per thread (FWD_SLICE)
 constexpr int kScan = 1024;  // threads of the group scan
 constexpr int kMaxGroup = 32;
 
-// Schedule rows, each of length G + 1: first item, end item, tile key
-// t * n_ch + j, first slice, last slice, first unit. Dead columns (g >= the
-// group count, and g = G) hold [0, 0, INT_MAX, 0, -1, unit total].
+// The group schedule (`fwd_group_schedule`), positions in slices.
 __global__ void __launch_bounds__(kScan)
     rsort_fwd_groups_kernel(const int* __restrict__ fwd,
                             const int* __restrict__ n_items, int w, int n_ch,
                             int s_ang, int group_items, int g_cap,
                             int* __restrict__ sched,
                             int* __restrict__ unit_group) {
-  __shared__ int warp_sums[32];
-  const int n = n_items[0];
-  const int ld = g_cap + 1;
-  auto key = [&](int q) { return fwd[q] * n_ch + fwd[w + q]; };
-  int g_carry = 0, u_carry = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    int head = 0, end = 0, k = 0, s_lo = INT_MAX, s_hi = -1, n_units = 0;
-    if (i < n) {
-      k = key(i);
-      const int start = first_at_least(0, i + 1, k, key);
-      if ((i - start) % group_items == 0) {
-        head = 1;
-        end = min(i + group_items, first_at_least(i, n, k + 1, key));
-        for (int q = i; q < end; ++q) {
-          s_lo = min(s_lo, fwd[4 * w + q] * s_ang / kSlice);
-          s_hi = max(s_hi, ((fwd[5 * w + q] + 1) * s_ang - 1) / kSlice);
-        }
-        n_units = s_hi - s_lo + 1;
-      }
-    }
-    int n_heads, total;
-    const int g = g_carry + block_exclusive_scan(head, warp_sums, n_heads);
-    const int u0 = u_carry + block_exclusive_scan(n_units, warp_sums, total);
-    if (head) {
-      sched[g] = i;
-      sched[ld + g] = end;
-      sched[2 * ld + g] = k;
-      sched[3 * ld + g] = s_lo;
-      sched[4 * ld + g] = s_hi;
-      sched[5 * ld + g] = u0;
-      for (int q = 0; q < n_units; ++q) unit_group[u0 + q] = g;
-    }
-    g_carry += n_heads;
-    u_carry += total;
-  }
-  for (int g = g_carry + threadIdx.x; g < ld; g += blockDim.x) {
-    sched[g] = 0;
-    sched[ld + g] = 0;
-    sched[2 * ld + g] = INT_MAX;
-    sched[3 * ld + g] = 0;
-    sched[4 * ld + g] = -1;
-    sched[5 * ld + g] = u_carry;
-  }
+  auto slices = [&](int q, int& lo, int& hi) {
+    lo = min(lo, fwd[4 * w + q] * s_ang / kSlice);
+    hi = max(hi, ((fwd[5 * w + q] + 1) * s_ang - 1) / kSlice);
+  };
+  fwd_group_schedule(fwd, n_items, w, n_ch, group_items, 1, g_cap, slices,
+                     sched, unit_group);
 }
 
 __global__ void rsort_fwd_rows_kernel(const float* __restrict__ centers,
@@ -118,27 +76,8 @@ __global__ void rsort_fwd_rows_kernel(const float* __restrict__ centers,
                                       float4* __restrict__ rows, int g_tile,
                                       int f_cols, int c, int w, int t_ang,
                                       int n_pt, int b_t, int b_p) {
-  const int i = blockIdx.x;
-  if (i >= n_items[0]) return;
-  const int t = fwd[i], blk = fwd[2 * w + i];
-  const int tile = fwd[w + i] * t_ang + t;
-  const float x0 = centers[3 * tile], y0 = centers[3 * tile + 1],
-              z0 = centers[3 * tile + 2];
-  for (int k = threadIdx.x; k < g_tile; k += blockDim.x) {
-    const size_t row = (size_t)blk * g_tile + k;
-    const float* g = table + row * f_cols;
-    float gl[NLOS_FDIM], r[12];
-#pragma unroll
-    for (int f = 0; f < NLOS_FDIM; ++f) gl[f] = g[f];
-    center_transform(gl, x0, y0, z0, r);
-    const bool m = rect_member(words[row], t, n_pt, b_t, b_p);
-    r[10] = m ? g[NLOS_FDIM] : 0.f;
-    r[11] = (m && c == 2) ? g[NLOS_FDIM + 1] : 0.f;
-    float4* dst = rows + ((size_t)i * g_tile + k) * 3;
-    dst[0] = make_float4(r[0], r[1], r[2], r[3]);
-    dst[1] = make_float4(r[4], r[5], r[6], r[7]);
-    dst[2] = make_float4(r[8], r[9], r[10], r[11]);
-  }
+  centred_rows(centers, 3, table, words, fwd, n_items, rows, g_tile, f_cols, c,
+               w, t_ang, n_pt, b_t, b_p);
 }
 
 // p of one centred row (three float4: form[10], w0, w1) at sample x.

@@ -46,6 +46,7 @@ def make_ground_truth_scene(
         pmin=volume_position - volume_size / 2,
         pmax=volume_position + volume_size / 2,
         max_sh_degree=max_sh_degree,
+        knn_scale_init=False,
         device=device,
     )
     sigma = 0.06 * volume_size

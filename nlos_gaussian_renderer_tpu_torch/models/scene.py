@@ -105,6 +105,59 @@ def scene_to_numpy(scene: GaussianScene) -> dict:
     }
 
 
+KNN_DENSE_MAX = 4096  # above this many points the KNN is exact and chunked
+_KNN_BLOCK_ELEMENTS = 1 << 26  # (rows, n) distance block of the chunked KNN: 256 MB
+
+
+def _mean_knn_dist2(points: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """(n,) mean squared distance to the k nearest neighbours, in the JAX
+    package's dense form (`models/scene.py:_mean_knn_dist2`): the
+    |a|^2 + |b|^2 - 2 a.b expansion clamped at 0, the diagonal at +inf, the
+    mean of the min(k, n - 1) smallest. The expansion cancels, so close
+    pairs carry an error of ~1e-7 of |p|^2; n = 1 gives NaN, as there."""
+    n = points.shape[0]
+    sq = torch.sum(points**2, dim=-1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * points @ points.T
+    d2 = torch.clamp(d2, min=0.0)
+    d2.fill_diagonal_(float("inf"))
+    return torch.topk(d2, min(k, n - 1), dim=-1, largest=False).values.mean(dim=-1)
+
+
+def _knn_mean_dist2_exact(points: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """(n,) mean squared distance to the k nearest neighbours by exact
+    differences, on the points' device, in row chunks of at most
+    `_KNN_BLOCK_ELEMENTS` distances. The function of the JAX package's
+    native grid KNN (`csrc/nlos_native.cpp:knn_mean_dist2`), term for term:
+    d2 = dx^2 + dy^2 + dz^2 in f32 in that order, the point itself excluded
+    by index (duplicates give 0), the k smallest summed in ascending order
+    and divided by k; n <= 1 gives 1e-6."""
+    n = points.shape[0]
+    if n <= 1:
+        return torch.full((n,), 1e-6, dtype=torch.float32, device=points.device)
+    k = max(1, min(k, n - 1))
+    x, y, z = points.unbind(-1)
+    rows = max(1, _KNN_BLOCK_ELEMENTS // n)
+    out = torch.empty(n, dtype=torch.float32, device=points.device)
+    for i0 in range(0, n, rows):
+        i1 = min(i0 + rows, n)
+        d = x[i0:i1, None] - x[None, :]
+        d2 = d * d
+        d = y[i0:i1, None] - y[None, :]
+        d2 += d * d
+        d = z[i0:i1, None] - z[None, :]
+        d2 += d * d
+        ar = torch.arange(i1 - i0, device=points.device)
+        d2[ar, ar + i0] = float("inf")
+        best = torch.topk(d2, k, dim=-1, largest=False).values  # ascending
+        acc = best[:, 0]
+        for t in range(1, k):
+            acc = acc + best[:, t]
+        # A tensor divisor: CUDA divides by a Python scalar through its
+        # reciprocal, one ulp off the native library's division.
+        out[i0:i1] = acc / torch.full_like(acc, k)
+    return out
+
+
 def init_scene(
     points,
     rho,
@@ -112,15 +165,18 @@ def init_scene(
     pmax,
     max_sh_degree: int,
     capacity: int | None = None,
+    knn_scale_init: bool = True,
     device=None,
 ) -> GaussianScene:
-    """Scene from initial points + albedos (the JAX `init_scene` with
-    `knn_scale_init=False`: the KNN scale init is not ported yet).
+    """Scene from initial points + albedos (the JAX `init_scene`).
 
     SH DC = rho_to_sh(rho), higher orders zero; isotropic scales from the
-    reference's box heuristic (pmax_x - pmin_x) / n; identity quaternions;
-    opacity sigmoid^-1(0.1). Capacity slots beyond len(points) are dead.
-    The scene lies on `device`, by default the CUDA card
+    mean squared distance to the 3 nearest neighbours (`knn_scale_init`,
+    the default: the dense expansion up to `KNN_DENSE_MAX` points, the
+    exact chunked KNN above, both on `device`), clipped at 1e-7, or from
+    the reference's box heuristic (pmax_x - pmin_x) / n; identity
+    quaternions; opacity sigmoid^-1(0.1). Capacity slots beyond len(points)
+    are dead. The scene lies on `device`, by default the CUDA card
     (`gmath.default_device`: without one, pass device='cpu').
     """
     device = gmath.default_device(device)
@@ -133,9 +189,14 @@ def init_scene(
     k = (max_sh_degree + 1) ** 2
     f32 = dict(dtype=torch.float32, device=points.device)
 
-    dist2 = max((float(pmax[0]) - float(pmin[0])) / max(n, 1), 1e-7)
-    log_s = np.float32(np.log(np.sqrt(np.float32(dist2))))
-    log_scales = torch.full((n, 3), float(log_s), **f32)
+    if knn_scale_init:
+        knn = _knn_mean_dist2_exact if n > KNN_DENSE_MAX else _mean_knn_dist2
+        dist2 = torch.clamp(knn(points), min=1e-7)
+        log_scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+    else:
+        dist2 = max((float(pmax[0]) - float(pmin[0])) / max(n, 1), 1e-7)
+        log_s = np.float32(np.log(np.sqrt(np.float32(dist2))))
+        log_scales = torch.full((n, 3), float(log_s), **f32)
     quats = torch.zeros((n, 4), **f32)
     quats[:, 0] = 1.0
     logit0 = float(gmath.inverse_sigmoid(torch.tensor(0.1, dtype=torch.float32)))

@@ -39,8 +39,8 @@ SIGNATURES = {
     "build_work_lists": [_P] * 2 + [_I] * 5 + [_P] * 6 + [_P],
     "rsort_fwd": [_P] * 10 + [_I] * 15 + [_P],
     "rsort_bwd": [_P] * 10 + [_I] * 15 + [_P],
-    "analytic_fwd": [_P] * 8 + [_I] * 12 + [_P],
-    "analytic_bwd": [_P] * 9 + [_I] * 13 + [_P],
+    "analytic_fwd": [_P] * 11 + [_I] * 16 + [_P],
+    "analytic_bwd": [_P] * 11 + [_I] * 15 + [_P],
     "field_fwd": [_P] * 5 + [_I] * 4 + [_P],
     "field_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "worklist_add": [_P] * 4 + [_I] * 2 + [_P],

@@ -18,12 +18,15 @@ moments I1, I2 of exp(-m/2) over each bin (see `csrc/analytic_bwd.cu`).
 
 Kernel K5 (`analytic_fwd`) and K6 (`analytic_bwd`) launch for CUDA tensors
 and raise on anything they cannot take; for CPU tensors the plain PyTorch
-versions beside them run. Not carried over, because they exist for Mosaic
-and the MXU: the polynomial erf (the port uses the native one), the bf16x3
-contractions and `bwd_p_bf16` (the port computes in f32 and ignores the
-flag), the gate ladder (the port covers exactly each item's [bl, bh]), the
-16-row sublane padding of the slab, and the `first`-flag zero init (outputs
-are zero-filled).
+versions beside them run. Both split the work lists into units built on
+the card, as K3 and K4 do (`fused_rsort.py`): K5 a (group of at most
+`AN_FWD_GROUP_ITEMS` items of one tile, slab of `AN_FWD_SLAB_BINS` bins)
+pair, K6 at most `AN_BWD_UNIT_BINS` bins of one backward item. Not carried
+over, because they exist for Mosaic and the MXU: the polynomial erf (the
+port uses the native one), the bf16x3 contractions and `bwd_p_bf16` (the
+port computes in f32 and ignores the flag), the gate ladder (the port
+covers exactly each item's [bl, bh]), the 16-row sublane padding of the
+slab, and the `first`-flag zero init (the kernels write every output).
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import (
     _item_batches,
     _member_of,
     _rect_bits,
+    bwd_unit_capacity,
+    fwd_group_capacity,
 )
 
 QDIM = 3 * FDIM  # quad slab rows: qa | qb | qc feature blocks
@@ -189,6 +194,13 @@ def _an_args(slab, aux, edges, table, words, lists, n_items, geo: RSortGeometry,
             lists.shape[1], geo.n_pt, b_t, b_p)
 
 
+# The unit sizes of K5 and K6: the fastest of a sweep at the bench scene on
+# an H100 (PERF.md). The kernels are built for these widths and refuse others.
+AN_FWD_GROUP_ITEMS = 1  # K5: at most this many items of one tile per unit
+AN_FWD_SLAB_BINS = 8  # K5: bins a unit (slab), from its group's first bin
+AN_BWD_UNIT_BINS = 16  # K6: at most this many bins of one item per unit
+
+
 def analytic_fwd(slab, aux, edges, table, words, fwd, n_items,
                  geo: RSortGeometry, c: int):
     """Forward optical depths over the forward work list: (T_tot, C,
@@ -203,14 +215,33 @@ def analytic_fwd(slab, aux, edges, table, words, fwd, n_items,
     Tiles with no items are zero."""
     if on_cpu(slab, aux, edges, table, words, fwd, n_items):
         return _analytic_fwd_plain(slab, aux, edges, table, words, fwd, n_items, geo, c)
+    return _analytic_fwd_launch(slab, aux, edges, table, words, fwd, n_items, geo, c)[0]
+
+
+def _analytic_fwd_launch(slab, aux, edges, table, words, fwd, n_items, geo, c):
+    """K5 on CUDA tensors: (out, schedule). The schedule is the (6, G + 1)
+    int32 array of `_fwd_groups_plain(..., AN_FWD_GROUP_ITEMS,
+    AN_FWD_SLAB_BINS)` as the kernel built it. Scratch: the centred rows,
+    W * g_tile * 48 bytes (7.9 MB at the bench scene: W 644, g_tile 256),
+    and the partial fields, G * ceil(t_chunk / U) units of C * U * S_ang
+    floats (I 1, U 8: 652 * 25 units, 67 MB at C = 1, of which the 1,449
+    live units touch 5.9 MB)."""
     args = _an_args(slab, aux, edges, table, words, fwd, n_items, geo, c)
-    out = torch.zeros((slab.shape[0], c, geo.s_ang * geo.t_chunk),
-                      dtype=torch.float32, device=slab.device)
+    w = fwd.shape[1]
+    g_cap = fwd_group_capacity(w, slab.shape[0], AN_FWD_GROUP_ITEMS)
+    n_units = g_cap * _cdiv(geo.t_chunk, AN_FWD_SLAB_BINS)
+    f32 = dict(dtype=torch.float32, device=slab.device)
+    out = torch.empty((slab.shape[0], c, geo.s_ang * geo.t_chunk), **f32)
+    # The schedule, then the unit -> group map.
+    sched = torch.empty(6 * (g_cap + 1) + n_units, dtype=torch.int32, device=slab.device)
+    rows = torch.empty((w, geo.g_tile, 12), **f32)
+    partial = torch.empty((n_units, c, AN_FWD_SLAB_BINS, geo.s_ang), **f32)
     KERNELS["analytic_fwd"].launch(
         ptr(slab), ptr(aux), ptr(edges), ptr(table), ptr(words), ptr(fwd),
-        ptr(n_items), ptr(out), *args,
+        ptr(n_items), ptr(out), ptr(sched), ptr(rows), ptr(partial), *args,
+        AN_FWD_GROUP_ITEMS, AN_FWD_SLAB_BINS, g_cap, geo.t_phi,
     )
-    return out
+    return out, sched[:6 * (g_cap + 1)].reshape(6, g_cap + 1)
 
 
 def analytic_bwd(slab, aux, edges, table, words, bwd, n_items, go,
@@ -222,20 +253,40 @@ def analytic_bwd(slab, aux, edges, table, words, bwd, n_items, go,
     if on_cpu(slab, aux, edges, table, words, bwd, n_items, go):
         return _analytic_bwd_plain(slab, aux, edges, table, words, bwd, n_items, go,
                                    geo, c)
+    return _analytic_bwd_launch(slab, aux, edges, table, words, bwd, n_items, go,
+                                geo, c)[0]
+
+
+def _analytic_bwd_launch(slab, aux, edges, table, words, bwd, n_items, go, geo, c):
+    """K6 on CUDA tensors: (dtable, unit offsets). The offsets are the (W +
+    1,) int32 array of `_bwd_unit_offsets_plain(..., AN_BWD_UNIT_BINS)` as
+    the kernel built it. The partial scratch is W * ceil(t_chunk / U) * (10 +
+    C) * g_tile floats, taken from the caching allocator on every call: at
+    the bench scene (W 644, U 16: 8,372 units) 94 MB at C = 1, of which the
+    914 live units touch 10 MB; it grows with W as K4's
+    (`_rsort_bwd_launch`)."""
     args = _an_args(slab, aux, edges, table, words, bwd, n_items, geo, c)
     check_tensor(go, "go", torch.float32, (slab.shape[0], c, geo.s_ang * geo.t_chunk))
-    dtable = torch.zeros_like(table)
+    w = bwd.shape[1]
+    cap = bwd_unit_capacity(w, geo.t_chunk, AN_BWD_UNIT_BINS)
+    dtable = torch.empty_like(table)
+    # Unit offsets, then the unit -> item map.
+    units = torch.empty(w + 1 + cap, dtype=torch.int32, device=table.device)
+    partial = torch.empty((cap, FDIM + c, geo.g_tile), dtype=torch.float32,
+                          device=table.device)
     KERNELS["analytic_bwd"].launch(
         ptr(slab), ptr(aux), ptr(edges), ptr(table), ptr(words), ptr(bwd),
-        ptr(n_items), ptr(go), ptr(dtable), *args, table.shape[0] // geo.g_tile,
+        ptr(n_items), ptr(go), ptr(dtable), ptr(units), ptr(partial), *args,
+        table.shape[0] // geo.g_tile, AN_BWD_UNIT_BINS, cap,
     )
-    return dtable
+    return dtable, units[:w + 1]
 
 
 def _section_terms(qa, qb, qc):
     """(inv_qa, qb/2, qb/(2qa), exp(-phi/2), pref, sqrt(qa/2)), in the order
-    the kernels spell with correctly rounded operations (`section_terms` in
-    `csrc/common.cuh`), so both agree to the last bit before the exp."""
+    the kernels spell with correctly rounded operations (`section_head` and
+    `section_tail` in `csrc/common.cuh`), so both agree to the last bit
+    before the exp."""
     qa = torch.clamp(qa, min=1e-8)
     inv_qa = torch.reciprocal(qa)
     sq = torch.sqrt(qa)
@@ -363,7 +414,7 @@ def analytic_gaussian_field(gfeat, channel_weights, grid, tiles: RSortTiles,
     with torch.no_grad():
         slab, aux, edges = analytic_operands(grid, cam, spec)
     geo = RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,
-                        spec.t_theta * spec.t_phi)
+                        spec.t_theta * spec.t_phi, spec.t_phi)
     out = AnalyticRSortField.apply(
         table, slab, aux, edges,
         tiles.words.reshape(-1).contiguous(), tiles.fwd, tiles.bwd,

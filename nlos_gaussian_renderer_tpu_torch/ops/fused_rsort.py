@@ -443,6 +443,7 @@ class RSortGeometry(NamedTuple):
     t_chunk: int
     g_tile: int
     s_ang: int
+    t_phi: int = 0  # rays a tile row (rays run theta-major); 0: not given
 
     @property
     def t_ang(self) -> int:
@@ -487,7 +488,7 @@ def _center_transform_t(dgp, x0, y0, z0):
     )
 
 
-# K3 / K4 work units -------------------------------------------------------------
+# K3 / K4 work units (K5 / K6 in `fused_analytic.py` build the same) -----------
 #
 # The field kernels split the work lists into units of bounded size, so no
 # CTA carries much more than the mean (an item of the backward list can
@@ -533,16 +534,20 @@ def fwd_group_capacity(w: int, t_tot: int, group_items: int) -> int:
     return _cdiv(w, group_items) + min(t_tot, w)
 
 
-def _fwd_groups_plain(fwd, n_items, geo: RSortGeometry, group_items: int):
-    """(6, G + 1) int32 schedule of K3, G = `fwd_group_capacity`.
+def _fwd_groups_plain(fwd, n_items, geo: RSortGeometry, group_items: int,
+                      slab_bins: int | None = None):
+    """(6, G + 1) int32 schedule of K3 (`slab_bins` None) or K5, G =
+    `fwd_group_capacity`.
 
     Each tile's items (contiguous in the forward list) are cut into groups
     of `group_items` consecutive items from the tile's first. Column g < n
-    groups holds [first item, end item, key = t * n_ch + j, first slice,
-    last slice, unit offset]: the slices (FWD_SLICE samples) the group's
-    bins touch, and the exclusive prefix of their counts. Units are (group,
-    slice) pairs in that order. Dead columns, and column G, hold [0, 0,
-    2^31 - 1, 0, -1, unit total]."""
+    groups holds [first item, end item, key = t * n_ch + j, first position,
+    last position, unit offset]: for K3 the slices (FWD_SLICE samples) the
+    group's bins touch, one unit each; for K5 the group's bins [min bl,
+    max bh], cut into units (slabs) of `slab_bins` bins from the first. The
+    offsets are the exclusive prefix of the unit counts; units are (group,
+    slice or slab) pairs in that order. Dead columns, and column G, hold
+    [0, 0, 2^31 - 1, 0, -1, unit total]."""
     dev = fwd.device
     g_cap = fwd_group_capacity(fwd.shape[1], geo.t_ang * geo.n_ch, group_items)
     n = int(n_items[0])
@@ -551,33 +556,38 @@ def _fwd_groups_plain(fwd, n_items, geo: RSortGeometry, group_items: int):
     heads = i[(i - torch.searchsorted(key, key)) % group_items == 0]
     end = torch.minimum(heads + group_items,
                         torch.searchsorted(key, key[heads], right=True))
-    s_lo = fwd[4, :n].long() * geo.s_ang // FWD_SLICE
-    s_hi = ((fwd[5, :n].long() + 1) * geo.s_ang - 1) // FWD_SLICE
+    if slab_bins is None:
+        s_lo = fwd[4, :n].long() * geo.s_ang // FWD_SLICE
+        s_hi = ((fwd[5, :n].long() + 1) * geo.s_ang - 1) // FWD_SLICE
+        span = 1
+    else:
+        s_lo, s_hi, span = fwd[4, :n].long(), fwd[5, :n].long(), slab_bins
     idx = heads[:, None] + torch.arange(group_items, device=dev)[None, :]
     inside = idx < end[:, None]
     idx = torch.clamp(idx, max=max(n - 1, 0))
     g_lo = torch.where(inside, s_lo[idx], 1 << 30).amin(1)
     g_hi = torch.where(inside, s_hi[idx], -1).amax(1)
-    units = torch.cumsum(g_hi - g_lo + 1, 0)
+    cnt = (g_hi - g_lo) // span + 1
+    units = torch.cumsum(cnt, 0)
     total = int(units[-1]) if heads.numel() else 0
     ng = heads.shape[0]
     sched = torch.zeros((6, g_cap + 1), dtype=torch.int64, device=dev)
     sched[2] = _DEAD_KEY
     sched[4] = -1
     sched[5] = total
-    for row, v in enumerate((heads, end, key[heads], g_lo, g_hi,
-                             units - (g_hi - g_lo + 1))):
+    for row, v in enumerate((heads, end, key[heads], g_lo, g_hi, units - cnt)):
         sched[row, :ng] = v
     return sched.to(torch.int32)
 
 
-def fwd_units(sched):
-    """(group, slice) int64 of every K3 unit, in unit order."""
+def fwd_units(sched, span: int = 1):
+    """(group, first position) int64 of every K3 unit (span 1: its slice)
+    or K5 unit (span U: its first bin), in unit order."""
     off = sched[5].long()
     cnt = off[1:] - off[:-1]
     group = torch.repeat_interleave(torch.arange(cnt.shape[0], device=off.device), cnt)
     k = torch.arange(group.shape[0], device=off.device) - off[group]
-    return group, sched[3].long()[group] + k
+    return group, sched[3].long()[group] + k * span
 
 
 def _field_args(xfeat, centers, table, words, lists, n_items, geo, c):

@@ -9,7 +9,9 @@ chunks, an overflowed work list, tile lists with a zero count and a
 partial last 128-row block, and for K3/K4 g_tile 32-512 and skewed work
 lists (one block over every bin of every tile, one tile holding every item,
 no item), with their on-card schedules held to the plain builders and a
-second launch held to the first bit for bit. Tolerances: K1/K2 outputs exactly equal; K3, K5
+second launch held to the first bit for bit (the same for K5/K6, with
+g_tile 512 and two channels; other unit widths are refused). Tolerances:
+K1/K2 outputs exactly equal; K3, K5
 and K7 rel_l2 <= 1e-5; K4, K6 and K8 rel_l2 <= 1e-4 (the kernels evaluate
 the forms and section terms in the plain versions' operation order; only
 the order of the sums over Gaussians, bins and samples differs); K8 rows at
@@ -84,7 +86,7 @@ def _inputs(dev, spec, occ=False, ns=8, start=60, end=140):
     xfeat, centers = tile_points_centered_direct_t(grid.theta, grid.phi, grid.r, cam, tp,
                                                    n_tt, n_pt, n_ch)
     geo = fr.RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,
-                           spec.t_theta * spec.t_phi)
+                           spec.t_theta * spec.t_phi, spec.t_phi)
     return dict(tiles=tiles, grid=grid, cam=cam, geo=geo, c=w.shape[1], n_gw=gfeat.shape[1] + w.shape[1],
                 xfeat=xfeat.contiguous(), centers=centers.contiguous())
 
@@ -196,29 +198,74 @@ def test_rsort_fwd_and_bwd_match_plain(dev, occ, t_chunk, g_tile, case):
         assert after[name] == before[name] + 2
 
 
-@pytest.mark.parametrize("occ", [False, True])
-@pytest.mark.parametrize("t_chunk", [8, 80])
-def test_analytic_fwd_and_bwd_match_plain(dev, occ, t_chunk):
-    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80)
+@pytest.mark.parametrize("occ,t_chunk,g_tile,case", [
+    (False, 8, 32, "cull"), (True, 8, 32, "cull"), (False, 80, 32, "cull"),
+    (True, 80, 32, "cull"), (False, 80, 128, "cull"), (True, 8, 512, "cull"),
+    (False, 80, 512, "cull"), (False, 8, 32, "one_block_all_bins"),
+    (True, 80, 128, "one_block_all_bins"), (False, 80, 32, "one_tile_all_items"),
+    (True, 80, 128, "one_tile_all_items"), (False, 8, 32, "empty"),
+])
+def test_analytic_fwd_and_bwd_match_plain(dev, occ, t_chunk, g_tile, case):
+    """K5 rel_l2 <= 1e-5 and K6 <= 1e-4 (visited blocks; exact zeros
+    elsewhere) against the plain versions, one and two channels, g_tile up
+    to 512, skewed lists (one block's items over every bin of every tile:
+    at t_chunk 80 its item spans the whole chunk); the schedules the kernels
+    build on the card equal the plain builders'; a second launch equals the
+    first bit for bit."""
+    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80,
+                         g_tile=g_tile)
     x = _inputs(dev, spec, occ=occ)
     t, geo, c = x["tiles"], x["geo"], x["c"]
+    assert c == (2 if occ else 1)
+    fwd, bwd, n_items = _skewed_lists(x, spec, case)
+    n = int(n_items[0])
+    assert (n == 0) == (case == "empty")
     args = (*fa.analytic_operands(x["grid"], x["cam"], spec), t.table.detach().contiguous(),
             t.words.reshape(-1).contiguous())
     before = cuda_build.launch_counts()
-    out = fa.analytic_fwd(*args, t.fwd, t.n_items, geo, c)
-    ref = fa._analytic_fwd_plain(*args, t.fwd, t.n_items, geo, c)
+    out, sched = fa._analytic_fwd_launch(*args, fwd, n_items, geo, c)
+    ref = fa._analytic_fwd_plain(*args, fwd, n_items, geo, c)
     assert out.shape == (geo.t_ang * geo.n_ch, c, geo.s_ang * spec.t_chunk)
-    assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    assert torch.equal(sched, fr._fwd_groups_plain(fwd, n_items, geo, fa.AN_FWD_GROUP_ITEMS,
+                                                   fa.AN_FWD_SLAB_BINS))
+    if n:
+        assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    else:
+        assert (out == 0).all()
+    assert torch.equal(fa.analytic_fwd(*args, fwd, n_items, geo, c), out)
     go = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(0),
                      device=dev)
-    dt = fa.analytic_bwd(*args, t.bwd, t.n_items, go, geo, c)
-    dref = fa._analytic_bwd_plain(*args, t.bwd, t.n_items, go, geo, c)
-    rows = t.blk_has_work.repeat_interleave(spec.g_tile)
-    assert dref.abs().max() > 0 and rel_l2(dt[rows], dref[rows]) <= 1e-4
+    dt, off = fa._analytic_bwd_launch(*args, bwd, n_items, go, geo, c)
+    dref = fa._analytic_bwd_plain(*args, bwd, n_items, go, geo, c)
+    assert torch.equal(off, fr._bwd_unit_offsets_plain(bwd, n_items, fa.AN_BWD_UNIT_BINS))
+    kb = t.words.shape[0] // g_tile
+    visited = torch.zeros(kb, dtype=torch.bool, device=dev)
+    visited[bwd[2, :n].long()] = True
+    rows = visited.repeat_interleave(g_tile)
+    if n:
+        assert dref.abs().max() > 0 and rel_l2(dt[rows], dref[rows]) <= 1e-4
     assert (dt[~rows] == 0).all() and (dt[:, fr.FDIM + c:] == 0).all()
+    assert torch.equal(fa.analytic_bwd(*args, bwd, n_items, go, geo, c), dt)
     after = cuda_build.launch_counts()
     for name in ("analytic_fwd", "analytic_bwd"):
-        assert after[name] == before[name] + 1
+        assert after[name] == before[name] + 2
+
+
+def test_analytic_kernels_refuse_other_unit_widths(dev, monkeypatch):
+    """K5 and K6 are built for one slab and unit width each; a launch sized
+    by any other is refused, not run."""
+    spec = SPEC._replace(t_chunk=80, gate_bins=80)
+    x = _inputs(dev, spec, occ=False)
+    t, geo, c = x["tiles"], x["geo"], x["c"]
+    args = (*fa.analytic_operands(x["grid"], x["cam"], spec), t.table.detach().contiguous(),
+            t.words.reshape(-1).contiguous())
+    go = torch.zeros((geo.t_ang * geo.n_ch, c, geo.s_ang * spec.t_chunk), device=dev)
+    monkeypatch.setattr(fa, "AN_FWD_SLAB_BINS", fa.AN_FWD_SLAB_BINS * 2)
+    with pytest.raises(RuntimeError, match="analytic_fwd: CUDA error"):
+        fa.analytic_fwd(*args, t.fwd, t.n_items, geo, c)
+    monkeypatch.setattr(fa, "AN_BWD_UNIT_BINS", fa.AN_BWD_UNIT_BINS // 2)
+    with pytest.raises(RuntimeError, match="analytic_bwd: CUDA error"):
+        fa.analytic_bwd(*args, t.bwd, t.n_items, go, geo, c)
 
 
 def _tile_inputs(dev, c, n=400, k_max=512):

@@ -138,7 +138,7 @@ class TestSceneAndData:
         js = jscene.init_scene(pts, rho, VOL - 0.3, VOL + 0.3, max_sh_degree=2,
                                capacity=16, knn_scale_init=False)
         ts = tscene.init_scene(pts, rho, VOL - 0.3, VOL + 0.3, max_sh_degree=2,
-                               capacity=16, device="cpu")
+                               capacity=16, knn_scale_init=False, device="cpu")
         for name in tscene.FIELD_NAMES:
             close(getattr(ts, name), getattr(js, name))
         assert ts.max_sh_degree == js.max_sh_degree == 2
