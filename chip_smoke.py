@@ -37,7 +37,13 @@ Phases:
      spec for K5 and K6: the work each CTA walks, from the lists, before
      and with the work units (max/mean <= 2 with them), the schedule each
      builds on the card equal to its plain builder, and a second launch
-     equal to the first bit for bit;
+     equal to the first bit for bit. K7 and K8 the same (their units, row
+     and patch records equal to the plain builders; per-CTA work max/mean
+     <= 2 in listed pairs, printed in walked pairs too), their bounds
+     counted over the live (row, sample) pairs (plain p != 0; the bound of
+     every listed pair printed beside), and the plain skip predicate held
+     conservative: no (row, patch) pair it skips holds a pair with plain
+     p >= 2^-126;
   4. hold the 100k forward histograms to the Gaussian-chunked dense
      reference (`pallas_rsort` and `pallas` rel_l2 < 2.5e-3), and
      `pallas_analytic` to the chunked dense `analytic` backend (< 2.5e-3)
@@ -310,6 +316,72 @@ def cta_work(fwd, bwd, n_items, geo):
     bins = k5_unit_bins(fwd, n_items.cpu(), geo)
     out["K5 units"] = bins[bins > 0] * gt * s_ang
     return out
+
+
+def field_work(xt, gt, counts, rec, prec, shape):
+    """K7 / K8 work at the tile lists, from the plain versions on the card:
+    live (row, sample) pairs (p = exp(-1/2 max(q, 0)) != 0 in f32, q the
+    plain `quad_form`), the (row, patch) pairs the plain skip predicate
+    skips and how many of them hold a pair with p >= 2^-126 (must be 0),
+    and the (row, sample) pairs each CTA of K7 and K8 walks: listed
+    ('before': PR 3's one CTA per (tile, 256-sample slice) over the whole
+    list, and per (tile, 128-row block); 'units' the present units) and
+    walked (32 samples for each (row, patch) pair the predicate keeps: both
+    kernels evaluate exactly those)."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused as tf
+
+    t_tiles, a = xt.shape[0], xt.shape[1]
+    smp = tf.patch_samples(a, shape, xt.device)
+    n_p = smp.shape[0]
+    units7 = tf._units_plain(counts, gt.shape[1]).long().cpu()
+    r7 = int(units7[-1])
+    blk7 = 16  # patches a K7 CTA, consecutive
+    n_b7 = -(-n_p // blk7)
+    k7_walk = torch.zeros((int(units7[-2]), n_b7), dtype=torch.float64)
+    k7_list = torch.zeros_like(k7_walk)
+    k8_walk, live, skipped, viol, walked = [], 0.0, 0, 0, 0
+    for t, n in enumerate(counts.tolist()):
+        if n == 0:
+            continue
+        skip = torch.zeros((n, n_p), dtype=torch.bool, device=xt.device)
+        for k0 in range(0, n, 2048):
+            k1 = min(n, k0 + 2048)
+            q = tf.quad_form(gt[t, k0:k1, None], xt[t][None])
+            p = torch.exp(-0.5 * torch.clamp(q, min=0.0))
+            live += float((p != 0).sum())
+            sk = tf._skip_plain(rec[t, k0:k1, None], gt[t, k0:k1, None], prec[t][None])
+            normal = (p[:, smp.clamp(min=0)] >= 2.0**-126) & (smp >= 0)
+            viol += int((sk & normal.any(-1)).sum())
+            skip[k0:k1] = sk
+        skipped += int(skip.sum())
+        walk = (~skip).double()
+        walked += int(walk.sum())
+        for ci in range(int(units7[t + 1] - units7[t])):
+            rows = walk[ci * r7:(ci + 1) * r7]
+            per_b = torch.nn.functional.pad(rows.sum(0), (0, n_b7 * blk7 - n_p))
+            k7_walk[int(units7[t]) + ci] = per_b.reshape(n_b7, blk7).sum(1).cpu() * tf.PATCH
+            k7_list[int(units7[t]) + ci] = rows.shape[0] * blk7 * tf.PATCH
+        per_row = walk.sum(1)
+        rows8 = -(-n // tf.BWD_UNIT_ROWS) * tf.BWD_UNIT_ROWS
+        k8_walk.append(torch.nn.functional.pad(per_row, (0, rows8 - n))
+                       .reshape(-1, tf.BWD_UNIT_ROWS).sum(1).cpu() * tf.PATCH)
+    n_rows = counts.long().cpu()
+
+    def blocks(rows):
+        return torch.cat([torch.clamp(n_rows[t] - torch.arange(0, int(n_rows[t]), rows),
+                                      max=rows) for t in range(t_tiles)]).double()
+
+    slices = -(-a // 256)
+    walk7, walk8 = k7_walk.flatten(), torch.cat(k8_walk)
+    return dict(
+        live=live, skipped=skipped, violations=viol, walked=walked,
+        row_patch=float(n_rows.sum()) * n_p,
+        cta={"K7 before (listed)": (n_rows[n_rows > 0].double() * 256).repeat_interleave(slices),
+             "K7 units (listed)": k7_list.flatten()[k7_list.flatten() > 0],
+             "K7 units (walked)": walk7[walk7 > 0],
+             "K8 before (listed)": blocks(128) * a,
+             "K8 units (listed)": blocks(tf.BWD_UNIT_ROWS) * a,
+             "K8 units (walked)": walk8[walk8 > 0]})
 
 
 def device_profile(run, steps):
@@ -653,48 +725,89 @@ def main() -> int:
                                grid.phi, grid.r, tile_spec)
             check(not bool(tt.overflowed), f"tile cull fits k_max={tile_spec.k_max}")
             dims = tf.tile_grid_dims(NS, nb, tile_spec)
+            shape = (tile_spec.t_r, tile_spec.t_theta, tile_spec.t_phi)
             xt = tf.tile_points(grid.points, NS, nb, tile_spec, *dims).contiguous()
             gw = tf.take_rows(torch.cat([gfeat, w], 1), tt.indices, tt.counts)
             gt = gw[..., :tf.FDIM].contiguous()
             wt = (gw[..., tf.FDIM:] * tt.slot_valid[..., None]).contiguous()
             counts = tt.counts
+            k_max = tile_spec.k_max
             pairs = float(counts.double().sum()) * xt.shape[1]
             rows_read = int(counts.sum()) * (tf.FDIM + c) * 4
-            log(f"tile lists: T={xt.shape[0]} A={xt.shape[1]} k_max={tile_spec.k_max} "
+            log(f"tile lists: T={xt.shape[0]} A={xt.shape[1]} k_max={k_max} "
                 f"counts {counts.tolist()}")
-            k7 = lambda: tf.field_fwd(xt, gt, wt, counts)
+            listed = torch.arange(k_max, device=dev)[None, :] < counts[:, None]
+            k7 = lambda: tf.field_fwd(xt, gt, wt, counts, shape)
             p7 = lambda: tf._field_fwd_plain(xt, gt, wt, counts)
-            o7, r7 = k7(), p7()
+            (o7, s7), r7 = tf._field_fwd_launch(xt, gt, wt, counts, shape), p7()
             e7 = rel_l2(o7, r7)
             check(e7 <= 1e-5, f"K7 field_fwd rel_l2 {e7:.3e} <= 1e-5")
-            # Per pair, from K7's body: the 10-term form (19), the clamp and
-            # the -1/2 scale, one exp, C multiply-adds.
+            prec7, tile_x7 = tf._patch_records_plain(xt, shape)
+            rec7 = tf._row_records_plain(gt, wt, counts, tile_x7)
+            check(torch.equal(s7.units, tf._units_plain(counts, k_max))
+                  and torch.equal(s7.prec, prec7) and torch.equal(s7.tile_x, tile_x7)
+                  and torch.equal(s7.rec[listed], rec7[listed]),
+                  "K7 units, patch and row records built on the card == plain builders")
+            check(torch.equal(k7(), o7), "K7 second launch equals the first bit for bit")
+
+            go7 = torch.randn(o7.shape, generator=gen, device=dev)
+            k8 = lambda: tf.field_bwd(xt, gt, wt, counts, go7, shape)
+            p8 = lambda: tf._field_bwd_plain(xt, gt, wt, counts, go7)
+            ((dg8, dw8), s8), (rg8, rw8) = (tf._field_bwd_launch(xt, gt, wt, counts, go7,
+                                                                 shape), p8())
+            e8 = max(rel_l2(dg8[listed], rg8[listed]), rel_l2(dw8[listed], rw8[listed]))
+            check(e8 <= 1e-4, f"K8 field_bwd rel_l2 {e8:.3e} <= 1e-4 (rows below count)")
+            check(bool((dg8[~listed] == 0).all() and (dw8[~listed] == 0).all()),
+                  "K8 writes exact zeros past each tile's count")
+            prec8, tile_x8 = tf._patch_records_plain(xt, shape, go7)
+            rec8 = tf._row_records_plain(gt, wt, counts, tile_x8)
+            check(torch.equal(s8.units, tf._units_plain(counts, k_max, rows=tf.BWD_UNIT_ROWS))
+                  and torch.equal(s8.prec, prec8) and torch.equal(s8.tile_x, tile_x8)
+                  and torch.equal(s8.rec[listed], rec8[listed]),
+                  "K8 units, patch and row records built on the card == plain builders")
+            dg8b, dw8b = k8()
+            check(torch.equal(dg8b, dg8) and torch.equal(dw8b, dw8),
+                  "K8 second launch equals the first bit for bit")
+
+            fw = field_work(xt, gt, counts, rec7, prec7, shape)
+            check(fw["violations"] == 0,
+                  f"the plain skip predicate is conservative at the 100k centre camera: "
+                  f"{fw['violations']} skipped (row, patch) pairs hold a pair with plain "
+                  f"p >= 2^-126 ({fw['skipped']:.4g} of {fw['row_patch']:.4g} skipped)")
+            live = fw["live"]
+            log(f"field pairs: {pairs:.4g} listed, {live:.4g} live (plain p != 0: "
+                f"{live / pairs:.4f}); (row, patch) pairs K7 and K8 walk: "
+                f"{fw['walked']:.4g} ({fw['walked'] / fw['row_patch']:.4f})")
+            for name, v in fw["cta"].items():
+                log(f"{name}: {v.numel()} CTAs with work, work a CTA ((row, sample) "
+                    f"pairs): mean {float(v.mean()):.4g}, max {float(v.max()):.4g}, "
+                    f"max/mean {float(v.max() / v.mean()):.3f}")
+            for k in ("K7", "K8"):
+                v = fw["cta"][f"{k} units (listed)"]
+                r = float(v.max() / v.mean())
+                check(r <= 2.0, f"{k} per-CTA listed work max/mean {r:.3f} <= 2")
+            # The least work of K7 a live pair (p != 0; every other pair adds
+            # exactly 0): the 10-term form (19), the clamp and the -1/2 scale,
+            # one exp, C multiply-adds. K8's: the form, clamp and scale (21),
+            # one exp, dw's C multiply-adds, sum_c go w (2C - 1), dm (2) and
+            # dg's 10 multiply-adds: 42 + 4C. The bound of every listed pair
+            # (PR 3-6's count) is logged beside it.
+            b7_bytes = nbytes(xt, counts, o7) + rows_read
+            bound("field_fwd (every listed pair)", f"{pairs:.4g} pairs", b7_bytes,
+                  pairs * (21 + 2 * c), pairs)
             kernel_rows["field_fwd"] = dict(
                 max_abs_err=float((o7 - r7).abs().max()), rel_l2=e7,
                 ms=cuda_time(k7, 10), plain_ms=cuda_time(p7, 2),
-                bound=bound("field_fwd", f"{pairs:.4g} (row, sample) pairs",
-                            nbytes(xt, counts, o7) + rows_read,
-                            pairs * (21 + 2 * c), pairs))
-
-            go7 = torch.randn(o7.shape, generator=gen, device=dev)
-            k8 = lambda: tf.field_bwd(xt, gt, wt, counts, go7)
-            p8 = lambda: tf._field_bwd_plain(xt, gt, wt, counts, go7)
-            (dg8, dw8), (rg8, rw8) = k8(), p8()
-            live = torch.arange(tile_spec.k_max, device=dev)[None, :] < counts[:, None]
-            e8 = max(rel_l2(dg8[live], rg8[live]), rel_l2(dw8[live], rw8[live]))
-            check(e8 <= 1e-4, f"K8 field_bwd rel_l2 {e8:.3e} <= 1e-4 (rows below count)")
-            check(bool((dg8[~live] == 0).all() and (dw8[~live] == 0).all()),
-                  "K8 writes exact zeros past each tile's count")
-            # Per pair, from K8's body: the form, clamp and scale (21), one
-            # exp, dw's C multiply-adds, and where m > 0 (a positive definite
-            # form's value off its mean; counted for every pair) sum_c go w
-            # (2C - 1), dm (2) and dg's 10 multiply-adds: 42 + 4C.
+                bound=bound("field_fwd", f"{live:.4g} live (row, sample) pairs", b7_bytes,
+                            live * (21 + 2 * c), live))
+            b8_bytes = nbytes(xt, counts, go7, dg8, dw8) + rows_read
+            bound("field_bwd (every listed pair)", f"{pairs:.4g} pairs", b8_bytes,
+                  pairs * (42 + 4 * c), pairs)
             kernel_rows["field_bwd"] = dict(
                 max_abs_err=float(max((dg8 - rg8).abs().max(), (dw8 - rw8).abs().max())),
                 rel_l2=e8, ms=cuda_time(k8, 10), plain_ms=cuda_time(p8, 2),
-                bound=bound("field_bwd", f"{pairs:.4g} (row, sample) pairs",
-                            nbytes(xt, counts, go7, dg8, dw8) + rows_read,
-                            pairs * (42 + 4 * c), pairs))
+                bound=bound("field_bwd", f"{live:.4g} live (row, sample) pairs", b8_bytes,
+                            live * (42 + 4 * c), live))
         log_rows(kernel_rows)
         return True
 
@@ -931,8 +1044,12 @@ def main() -> int:
                 groups[g] = groups.get(g, 0.0) + kms
             for g, kms in sorted(groups.items(), key=lambda kv: -kv[1]):
                 log(f"  {kms:8.4f} ms/step  {g}")
-            for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+            for name, kms in ranked[:8]:
                 log(f"  {kms:8.4f} ms/step    kernel {name[:90]}")
+            for name, kms in ranked:  # every launch of the backend's own kernels
+                if profile_group(name) in PATH_KERNELS[backend]:
+                    log(f"  {kms:8.4f} ms/step    part of {profile_group(name)}: {name[:80]}")
         return counts, ms, main_calls
 
     trained = {

@@ -348,3 +348,319 @@ __device__ __forceinline__ void bwd_unit_scan(const int* __restrict__ bwd,
   }
   if (threadIdx.x == 0) unit_off[w] = carry;
 }
+
+// --- the tile field kernels (K7, K8): patches, row records, the skip -------
+//
+// Both kernels evaluate p = exp(-1/2 max(q, 0)), q = `quad`(g, x) of a list
+// row's UNCENTRED form g and a sample's monomials x, through `exp_neg_half`.
+// At the bench scene only ~3.6% of the listed (row, sample) pairs have
+// q < 175, and for every other pair p is exactly 0: q >= 175 gives
+// fl(q * -log2(e)/2) <= -126.23, whose ex2.approx.ftz result is subnormal
+// and flushed to +0. A pair whose p is +0 adds +-0 to sums that start at +0,
+// which changes no bit (a sum that starts at +0 never becomes -0). So the
+// kernels skip (row, patch) pairs where a conservative test proves q >= 175
+// at every sample of a 32-sample patch:
+//
+//   Row record (`row_record`, once a row, in double). g's exact quadratic
+//   S(x) = x'Ax + b'x + c (A from g[0:6], b = g[6:9], c = g[9]) equals
+//   (x - mu)'A(x - mu) + r'(x - mu) + S(mu) for any mu; mu = -A^-1 b / 2 by
+//   cofactors, r = b + 2 A mu its residual. A is positive definite where a
+//   lower bound of its least eigenvalue is positive (trace, principal minors
+//   M2 and det positive past their rounding bounds, then lmin >= det / M2;
+//   or Gershgorin); lmax <= min(trace, Gershgorin). The kernel's f32 q at a
+//   sample with |coordinates| <= X (the tile's largest) is below S(x) by at
+//   most ~11.2 u B with B = G2 Y^2 + G1 Y + G0 (G2, G1, G0 the sums of |g|
+//   over the quadratic, linear and constant terms, Y = max(X, |mu|)): the
+//   monomials are f32 products of the coordinates (checked per patch) and
+//   `quad` rounds 19 times. So q >= 175 wherever
+//     ||x - mu||_A^2 >= T = 175 + 2^-19 B + |r| (sqrt(3) X + |mu|) - S(mu).
+//   The record keeps mu in f32 (mu_f) and, rounded up, R1 = sqrt(T / lmin) +
+//   e_mu, sl = sqrt(lmax), R2 = sqrt(T) + sl e_mu (e_mu = |mu_f - mu|) and
+//   G2. A form that is not positive definite, or any non-finite g or weight,
+//   gets R1 = R2 = inf: never skipped.
+//   Patch record (`patch_records`, f32): the centre xc of the patch's
+//   bounding box and rho >= max |x - xc| (rounded up from double). A patch
+//   with a non-finite sample, a monomial that is not the f32 product of its
+//   coordinates, a constant term other than 1 (or, for K8, a non-finite
+//   cotangent) gets rho = inf: never skipped.
+//   The test (`skip_pair`, f32): with d = xc - mu_f, skip where
+//     |d| > rho + R1                       (|x - mu| >= |d| - rho, lmin), or
+//     ||d||_A - 2^-16-scaled error > sl rho + R2   (triangle inequality in
+//   the A-norm), both compared squared with a relative slack of 2^-16, far
+//   above the test's own f32 rounding (~10 u).
+// Every quantity is spelled with round-to-nearest intrinsics in the order of
+// the plain PyTorch versions (`fused._row_records_plain`,
+// `_patch_records_plain`, `_skip_plain`), so the kernels and the plain
+// versions build the same records and take the same decisions bit for bit.
+
+#define DMUL __dmul_rn
+#define DADD __dadd_rn
+#define DSUB __dsub_rn
+
+constexpr int kPatch = 32;        // samples a patch (a warp's samples)
+constexpr float kSkipQ = 175.f;   // q >= this gives p = +0 exactly
+constexpr int kRecord = 8;        // floats a row record
+
+// 8-byte asynchronous global -> shared copy.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+// The tile sample of lane j of patch p: 8 r x 2 theta x 2 phi patches of a
+// (tr, tt, tp) tile in (r, theta, phi) order where tr > 0 (the caller checks
+// that the patches tile it), else 32 consecutive samples. -1 past a.
+__device__ __forceinline__ int patch_sample(int p, int j, int a, int tr, int tt,
+                                            int tp) {
+  if (tr <= 0) {
+    const int s = p * kPatch + j;
+    return s < a ? s : -1;
+  }
+  const int npt = tt / 2, npp = tp / 2;
+  const int pr = p / (npt * npp), pt = (p / npp) % npt, pp = p % npp;
+  const int r = pr * 8 + (j >> 2), th = pt * 2 + ((j >> 1) & 1),
+            ph = pp * 2 + (j & 1);
+  return (r * tt + th) * tp + ph;
+}
+
+__device__ __forceinline__ float round_up_f32(double v) {
+  return __double2float_ru(v);
+}
+
+// Patch records (one warp a patch, one lane a sample; blockIdx.y the tile,
+// blockIdx.x a run of blockDim.x / 32 patches): prec (T, np, 4) = (xc, rho),
+// and tile_x (T,), zeroed before, raised to the largest |coordinate| of
+// the tile's valid patches (a max: exact in any order). x (T, A, 10); go
+// (T, A, c) or null.
+__device__ __forceinline__ void patch_records(const float* __restrict__ x,
+                                              const float* __restrict__ go,
+                                              int a, int c, int np, int tr,
+                                              int tt, int tp,
+                                              float4* __restrict__ prec,
+                                              float* __restrict__ tile_x) {
+  __shared__ float big_w[32];
+  const int t = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * (blockDim.x >> 5) + warp;
+  float big = 0.f;
+  if (p < np) {  // uniform over the warp
+    const int s = patch_sample(p, lane, a, tr, tt, tp);
+    float v[NLOS_FDIM];
+    bool ok = true;
+#pragma unroll
+    for (int f = 0; f < NLOS_FDIM; ++f)
+      v[f] = s >= 0 ? x[((size_t)t * a + s) * NLOS_FDIM + f] : 0.f;
+    if (s >= 0) {
+#pragma unroll
+      for (int f = 0; f < NLOS_FDIM; ++f) ok = ok && isfinite(v[f]);
+      ok = ok && v[0] == MUL(v[6], v[6]) && v[1] == MUL(v[7], v[7]) &&
+           v[2] == MUL(v[8], v[8]) && v[3] == MUL(v[6], v[7]) &&
+           v[4] == MUL(v[6], v[8]) && v[5] == MUL(v[7], v[8]) && v[9] == 1.f;
+      if (go != nullptr)
+        for (int ci = 0; ci < c; ++ci)
+          ok = ok && isfinite(go[((size_t)t * a + s) * c + ci]);
+    }
+    const bool valid = __all_sync(0xffffffffu, ok);
+    float lo[3], hi[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {  // fminf / fmaxf: NaN never wins
+      const bool use = s >= 0 && !isnan(v[6 + i]);
+      lo[i] = use ? v[6 + i] : INFINITY;
+      hi[i] = use ? v[6 + i] : -INFINITY;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        lo[i] = fminf(lo[i], __shfl_xor_sync(0xffffffffu, lo[i], o));
+        hi[i] = fmaxf(hi[i], __shfl_xor_sync(0xffffffffu, hi[i], o));
+      }
+    float xc[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) xc[i] = MUL(ADD(lo[i], hi[i]), 0.5f);
+    double r2 = 0.0;
+    if (s >= 0) {
+      const double dx = DSUB((double)v[6], (double)xc[0]);
+      const double dy = DSUB((double)v[7], (double)xc[1]);
+      const double dz = DSUB((double)v[8], (double)xc[2]);
+      r2 = DADD(DADD(DMUL(dx, dx), DMUL(dy, dy)), DMUL(dz, dz));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      r2 = fmax(r2, __shfl_xor_sync(0xffffffffu, r2, o));
+    if (lane == 0)
+      prec[(size_t)t * np + p] = make_float4(
+          xc[0], xc[1], xc[2], valid ? round_up_f32(__dsqrt_rn(r2)) : INFINITY);
+    if (valid)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) big = fmaxf(big, fmaxf(fabsf(lo[i]), fabsf(hi[i])));
+  }
+  if (lane == 0) big_w[warp] = big;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) big = fmaxf(big, big_w[w]);
+    // Non-negative floats order as their bits do.
+    atomicMax(reinterpret_cast<int*>(tile_x + t), __float_as_int(big));
+  }
+}
+
+// The record of one row (form g[10], weights w[c]) of a tile whose largest
+// valid |coordinate| is X: [mu_f x/y/z, R1, sl, R2, G2, 0] (see above).
+__device__ __forceinline__ void row_record(const float* __restrict__ g,
+                                           const float* __restrict__ w, int c,
+                                           float X, float4* __restrict__ out) {
+  bool finite = true;
+  double gd[NLOS_FDIM];
+#pragma unroll
+  for (int f = 0; f < NLOS_FDIM; ++f) {
+    finite = finite && isfinite(g[f]);
+    gd[f] = g[f];
+  }
+  for (int ci = 0; ci < c; ++ci) finite = finite && isfinite(w[ci]);
+  const double a00 = gd[0], a11 = gd[1], a22 = gd[2];
+  const double a01 = DMUL(0.5, gd[3]), a02 = DMUL(0.5, gd[4]),
+               a12 = DMUL(0.5, gd[5]);
+  const double b0 = gd[6], b1 = gd[7], b2 = gd[8], cc = gd[9];
+  const double c00 = DSUB(DMUL(a11, a22), DMUL(a12, a12));
+  const double c01 = DSUB(DMUL(a02, a12), DMUL(a01, a22));
+  const double c02 = DSUB(DMUL(a01, a12), DMUL(a11, a02));
+  const double c11 = DSUB(DMUL(a00, a22), DMUL(a02, a02));
+  const double c12 = DSUB(DMUL(a01, a02), DMUL(a00, a12));
+  const double c22 = DSUB(DMUL(a00, a11), DMUL(a01, a01));
+  const double det = DADD(DADD(DMUL(a00, c00), DMUL(a01, c01)), DMUL(a02, c02));
+  const double m2 = DADD(DADD(c00, c11), c22);
+  const double tr = DADD(DADD(a00, a11), a22);
+  const double e_det = DMUL(
+      0x1p-48,
+      DADD(DADD(DMUL(fabs(a00), DADD(fabs(DMUL(a11, a22)), DMUL(a12, a12))),
+                DMUL(fabs(a01), DADD(fabs(DMUL(a02, a12)), fabs(DMUL(a01, a22))))),
+           DMUL(fabs(a02), DADD(fabs(DMUL(a01, a12)), fabs(DMUL(a11, a02))))));
+  const double e_m2 = DMUL(
+      0x1p-48,
+      DADD(DADD(DADD(fabs(DMUL(a11, a22)), DMUL(a12, a12)),
+                DADD(fabs(DMUL(a00, a22)), DMUL(a02, a02))),
+           DADD(fabs(DMUL(a00, a11)), DMUL(a01, a01))));
+  const double e_tr = DMUL(0x1p-48, DADD(DADD(fabs(a00), fabs(a11)), fabs(a22)));
+  const double r0 = DADD(fabs(a01), fabs(a02)), r1 = DADD(fabs(a01), fabs(a12)),
+               r2 = DADD(fabs(a02), fabs(a12));
+  const double g_lo = fmin(fmin(DSUB(a00, r0), DSUB(a11, r1)), DSUB(a22, r2));
+  const double g_hi = fmax(fmax(DADD(a00, r0), DADD(a11, r1)), DADD(a22, r2));
+  const bool minors = DSUB(tr, e_tr) > 0.0 && DSUB(m2, e_m2) > 0.0 &&
+                      DSUB(det, e_det) > 0.0;
+  const double lb_det =
+      minors ? __ddiv_rn(DSUB(det, e_det), DADD(m2, e_m2)) : 0.0;
+  const double lb_g = DSUB(g_lo, DMUL(0x1p-48, g_hi));
+  const double lmin = DMUL(fmax(lb_det, lb_g), 1.0 - 0x1p-40);
+  const double lmax = DMUL(fmin(tr, g_hi), 1.0 + 0x1p-40);
+  float4 r_a = make_float4(0.f, 0.f, 0.f, INFINITY);
+  float4 r_b = make_float4(0.f, INFINITY, 0.f, 0.f);
+  if (finite && lmin > 0.0) {
+    const double inv = __ddiv_rn(-0.5, det);
+    const double mu0 = DMUL(DADD(DADD(DMUL(c00, b0), DMUL(c01, b1)), DMUL(c02, b2)), inv);
+    const double mu1 = DMUL(DADD(DADD(DMUL(c01, b0), DMUL(c11, b1)), DMUL(c12, b2)), inv);
+    const double mu2 = DMUL(DADD(DADD(DMUL(c02, b0), DMUL(c12, b1)), DMUL(c22, b2)), inv);
+    const double am0 = DADD(DADD(DMUL(a00, mu0), DMUL(a01, mu1)), DMUL(a02, mu2));
+    const double am1 = DADD(DADD(DMUL(a01, mu0), DMUL(a11, mu1)), DMUL(a12, mu2));
+    const double am2 = DADD(DADD(DMUL(a02, mu0), DMUL(a12, mu1)), DMUL(a22, mu2));
+    const double q0 = DADD(b0, DMUL(2.0, am0)), q1 = DADD(b1, DMUL(2.0, am1)),
+                 q2 = DADD(b2, DMUL(2.0, am2));
+    const double rn = __dsqrt_rn(DADD(DADD(DMUL(q0, q0), DMUL(q1, q1)), DMUL(q2, q2)));
+    const double s_mu =
+        DADD(DADD(cc, DADD(DADD(DMUL(b0, mu0), DMUL(b1, mu1)), DMUL(b2, mu2))),
+             DADD(DADD(DMUL(mu0, am0), DMUL(mu1, am1)), DMUL(mu2, am2)));
+    const double mun = __dsqrt_rn(DADD(DADD(DMUL(mu0, mu0), DMUL(mu1, mu1)), DMUL(mu2, mu2)));
+    const double y = fmax((double)X, fmax(fmax(fabs(mu0), fabs(mu1)), fabs(mu2)));
+    double g2 = fabs(gd[0]);
+#pragma unroll
+    for (int f = 1; f < 6; ++f) g2 = DADD(g2, fabs(gd[f]));
+    const double g1 = DADD(DADD(fabs(gd[6]), fabs(gd[7])), fabs(gd[8]));
+    const double bnd = DADD(DADD(DMUL(DMUL(g2, y), y), DMUL(g1, y)), fabs(cc));
+    double thr = DSUB(DADD(DADD((double)kSkipQ, DMUL(0x1p-19, bnd)),
+                           DMUL(rn, DADD(DMUL(1.7320508075688774, (double)X), mun))),
+                      s_mu);
+    thr = fmax(thr, 0.0);
+    const float mf0 = __double2float_rn(mu0), mf1 = __double2float_rn(mu1),
+                mf2 = __double2float_rn(mu2);
+    const double e0 = DSUB((double)mf0, mu0), e1 = DSUB((double)mf1, mu1),
+                 e2 = DSUB((double)mf2, mu2);
+    const double e_mu = __dsqrt_rn(DADD(DADD(DMUL(e0, e0), DMUL(e1, e1)), DMUL(e2, e2)));
+    const double sl = __dsqrt_rn(lmax);
+    const double rt = __dsqrt_rn(thr);
+    r_a = make_float4(mf0, mf1, mf2,
+                      round_up_f32(DADD(__dsqrt_rn(__ddiv_rn(thr, lmin)), e_mu)));
+    r_b = make_float4(round_up_f32(sl), round_up_f32(DADD(rt, DMUL(sl, e_mu))),
+                      round_up_f32(g2), 0.f);
+  }
+  out[0] = r_a;
+  out[1] = r_b;
+}
+
+// Whether a row (record ra = [mu_f, R1], rb = [sl, R2, G2, 0], form g[0:6])
+// may skip a patch (pr = [xc, rho]): q >= 175 at each of its samples.
+__device__ __forceinline__ bool skip_pair(float4 ra, float4 rb, const float* g6,
+                                          float4 pr) {
+  constexpr float kSlack = 1.0f + 0x1p-16f;
+  const float dx = __fsub_rn(pr.x, ra.x), dy = __fsub_rn(pr.y, ra.y),
+              dz = __fsub_rn(pr.z, ra.z);
+  const float xx = MUL(dx, dx), yy = MUL(dy, dy), zz = MUL(dz, dz);
+  const float d2 = ADD(ADD(xx, yy), zz);
+  const float t1 = ADD(pr.w, ra.w);
+  const bool far = d2 > MUL(MUL(t1, t1), kSlack);
+  float n2 = ADD(MUL(g6[0], xx), MUL(g6[1], yy));
+  n2 = ADD(n2, MUL(g6[2], zz));
+  n2 = ADD(n2, MUL(g6[3], MUL(dx, dy)));
+  n2 = ADD(n2, MUL(g6[4], MUL(dx, dz)));
+  n2 = ADD(n2, MUL(g6[5], MUL(dy, dz)));
+  const float n2lb = __fsub_rn(n2, MUL(MUL(rb.z, 0x1p-16f), d2));
+  const float t2 = ADD(MUL(rb.x, pr.w), rb.y);
+  return far || n2lb > MUL(MUL(t2, t2), kSlack);
+}
+
+// Rows a unit of the field kernels and the unit offsets, by one block (which
+// also zeroes tile_x for `patch_records`): units[0..t] the exclusive scan of ceil(min(counts, k) / R) over the
+// tiles, units[t + 1] = R. R = fixed_rows where > 0, else the least
+// multiple of `quantum` (>= quantum) with sum_t min(counts, k) / R <=
+// budget, so the units number at most budget + t.
+__device__ __forceinline__ void field_units(const int* __restrict__ counts,
+                                            int t, int k, int fixed_rows,
+                                            int budget, int quantum,
+                                            int* __restrict__ units,
+                                            float* __restrict__ tile_x) {
+  __shared__ int warp_sums[32];
+  for (int i = threadIdx.x; i < t; i += blockDim.x) tile_x[i] = 0.f;
+  __shared__ long long n_total;
+  int rows = fixed_rows;
+  if (rows <= 0) {
+    if (threadIdx.x == 0) n_total = 0;
+    __syncthreads();
+    long long part = 0;
+    for (int i = threadIdx.x; i < t; i += blockDim.x)
+      part += max(min(counts[i], k), 0);
+    atomicAdd(reinterpret_cast<unsigned long long*>(&n_total),
+              (unsigned long long)part);
+    __syncthreads();
+    const long long per = (n_total + budget - 1) / budget;
+    const long long r = (per + quantum - 1) / quantum * quantum;
+    rows = r > quantum ? (int)r : quantum;
+  }
+  int carry = 0;
+  for (int base = 0; base < t; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int n = i < t ? max(min(counts[i], k), 0) : 0;
+    int total;
+    const int ex = block_exclusive_scan((n + rows - 1) / rows, warp_sums, total);
+    if (i < t) units[i] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) {
+    units[t] = carry;
+    units[t + 1] = rows;
+  }
+}
+
+// The tile of unit u: the last i with units[i] <= u.
+__device__ __forceinline__ int unit_tile(const int* __restrict__ units, int t,
+                                         int u) {
+  return first_at_least(0, t, u + 1, [&](int i) { return units[i + 1]; });
+}

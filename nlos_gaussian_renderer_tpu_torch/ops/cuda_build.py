@@ -41,8 +41,8 @@ SIGNATURES = {
     "rsort_bwd": [_P] * 10 + [_I] * 15 + [_P],
     "analytic_fwd": [_P] * 11 + [_I] * 16 + [_P],
     "analytic_bwd": [_P] * 11 + [_I] * 15 + [_P],
-    "field_fwd": [_P] * 5 + [_I] * 4 + [_P],
-    "field_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    "field_fwd": [_P] * 10 + [_I] * 9 + [_P],
+    "field_bwd": [_P] * 11 + [_I] * 8 + [_P],
     "worklist_add": [_P] * 4 + [_I] * 2 + [_P],
 }
 

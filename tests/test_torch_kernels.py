@@ -6,7 +6,10 @@ On the card: `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
 Shapes are the small ones of tests/test_torch_rsort.py and
 tests/test_torch_tile.py, one and two channels, one and several radial
 chunks, an overflowed work list, tile lists with a zero count and a
-partial last 128-row block, and for K3/K4 g_tile 32-512 and skewed work
+partial last 128-row block (K7/K8 also with one tile at k_max, three
+empty, 32-sample patches in order or 8 x 2 x 2, their schedules and row
+records held to the plain builders, and a second launch held to the first
+bit for bit), and for K3/K4 g_tile 32-512 and skewed work
 lists (one block over every bin of every tile, one tile holding every item,
 no item), with their on-card schedules held to the plain builders and a
 second launch held to the first bit for bit (the same for K5/K6, with
@@ -314,6 +317,71 @@ def test_field_fwd_and_bwd_match_plain(dev, c):
     after = cuda_build.launch_counts()
     for name in ("field_fwd", "field_bwd"):
         assert after[name] == before[name] + 1
+
+
+def _equal_schedule(sched, ref, counts):
+    """The K7/K8 schedule built on the card against its plain builders:
+    units, tile data and patch records equal; row records equal on the rows
+    below each count."""
+    rows = torch.arange(sched.rec.shape[1], device=counts.device)[None, :] < counts[:, None]
+    assert torch.equal(sched.units, ref.units)
+    assert torch.equal(sched.tile_x, ref.tile_x) and torch.equal(sched.prec, ref.prec)
+    assert torch.equal(sched.rec[rows], ref.rec[rows])
+
+
+@pytest.mark.parametrize("shaped", [False, True])
+@pytest.mark.parametrize("c", [1, 2])
+def test_field_kernels_skewed_counts_schedules_and_relaunch(dev, c, shaped):
+    """Skewed lists (tile 0 at k_max, three tiles empty, the rest as culled)
+    through K7 and K8 with 32-sample patches in order and with 8 x 2 x 2
+    patches of the (16, 4, 8) tiles: the gates of the plain versions, the
+    schedules equal to their plain builders, a second launch equal to the
+    first bit for bit, and some (row, patch) pairs skipped."""
+    k_max = 512
+    xfeat, g, w, counts = _tile_inputs(dev, c, k_max=k_max)
+    counts = counts.clone()
+    counts[0] = k_max  # pad rows: forms of list slot 0's Gaussian, weights 0
+    counts[1:4] = 0
+    shape = (16, 4, 8) if shaped else None
+    out, sched = tf._field_fwd_launch(xfeat, g, w, counts, shape)
+    ref = tf._field_fwd_plain(xfeat, g, w, counts)
+    assert ref.abs().max() > 0 and rel_l2(out, ref) <= 1e-5
+    assert (out[1:4] == 0).all()
+    assert torch.equal(tf.field_fwd(xfeat, g, w, counts, shape), out)
+    prec, tile_x = tf._patch_records_plain(xfeat, shape)
+    rec = tf._row_records_plain(g, w, counts, tile_x)
+    units = tf._units_plain(counts, k_max)
+    _equal_schedule(sched, tf.FieldSchedule(units, rec, prec, tile_x), counts)
+    skip = tf._skip_plain(rec[:, :, None], g[:, :, None], prec[:, None])
+    rows = torch.arange(k_max, device=dev)[None, :] < counts[:, None]
+    assert 0 < int(skip[rows].sum()) < skip[rows].numel()
+
+    go = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                     device=dev)
+    (dg, dw), sched = tf._field_bwd_launch(xfeat, g, w, counts, go, shape)
+    rg, rw = tf._field_bwd_plain(xfeat, g, w, counts, go)
+    assert rel_l2(dg[rows], rg[rows]) <= 1e-4 and rel_l2(dw[rows], rw[rows]) <= 1e-4
+    assert (dg[~rows] == 0).all() and (dw[~rows] == 0).all()
+    dg2, dw2 = tf.field_bwd(xfeat, g, w, counts, go, shape)
+    assert torch.equal(dg2, dg) and torch.equal(dw2, dw)
+    prec, tile_x = tf._patch_records_plain(xfeat, shape, go)
+    rec = tf._row_records_plain(g, w, counts, tile_x)
+    _equal_schedule(sched, tf.FieldSchedule(
+        tf._units_plain(counts, k_max, rows=tf.BWD_UNIT_ROWS), rec, prec, tile_x), counts)
+
+
+def test_field_kernels_refuse_other_unit_widths(dev, monkeypatch):
+    """K7's chunks are multiples of its staged batch and K8's units its CTA
+    rows; each kernel is built for its width and refuses a launch sized by
+    another."""
+    xfeat, g, w, counts = _tile_inputs(dev, 1)
+    go = torch.zeros((xfeat.shape[0], xfeat.shape[1], 1), device=dev)
+    monkeypatch.setattr(tf, "FWD_BATCH_ROWS", tf.FWD_BATCH_ROWS // 2)
+    with pytest.raises(RuntimeError, match="field_fwd: CUDA error"):
+        tf.field_fwd(xfeat, g, w, counts)
+    monkeypatch.setattr(tf, "BWD_UNIT_ROWS", tf.BWD_UNIT_ROWS // 2)
+    with pytest.raises(RuntimeError, match="field_bwd: CUDA error"):
+        tf.field_bwd(xfeat, g, w, counts, go)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_rsort", "pallas_analytic"])
