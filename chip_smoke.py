@@ -25,15 +25,18 @@ Phases:
      tile `k_max` from 2048 by doubling on the corners and middle of the
      256x256 scan grid);
   3. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes, centre camera (K1/K2 exactly equal; K3, K5, K7
+     main paths' shapes, centre camera (K1/K2 exactly equal on every
+     output, and a second launch equal to the first; K3, K5, K7
      rel_l2 <= 1e-5; K4, K6 rel_l2 <= 1e-4 over visited blocks; K8 <= 1e-4
      on rows below each tile's count and exactly 0 past it), time both with
      CUDA events, and print each kernel's work count and roofline bound
      (K5/K6 past the section head: only the (row, ray) pairs whose
      exp(-phi/2) is nonzero, counted from the plain section terms);
      then K1-K4 once more, at the spec the tools tune (t_chunk 32, gate_bins
-     4: seven radial chunks), with the same gates (the kernels line keeps
-     the train spec's rows). At both specs for K3 and K4, and at the train
+     4: seven radial chunks), and K1/K2 at `RSortSpec`'s default t_chunk 8
+     (25 chunks), with the same gates (the kernels line keeps the train
+     spec's rows; K1 and K2 are timed in phase 10). At both specs for K3
+     and K4, and at the train
      spec for K5 and K6: the work each CTA walks, from the lists, before
      and with the work units (max/mean <= 2 with them), the schedule each
      builds on the card equal to its plain builder, and a second launch
@@ -74,7 +77,17 @@ Phases:
      finite, no cull overflowed, K9 and K1-K4 launched;
   9. 100k gradient parity (`tools/grad_parity.py`, rows sigma3 and
      gtnoise, the three probe cameras): forward histogram rel_l2 < 2.5e-3
-     and every group's cosine >= 0.999; rel_l2 and max_norm printed.
+     and every group's cosine >= 0.999; rel_l2 and max_norm printed;
+ 10. last, so that no other phase runs after a CUDA graph capture:
+     `tools/schedbench.py` at the three specs of phase 3. K1 and K2 timed
+     by replaying a CUDA graph of 50 captured calls (the kernels line's ms;
+     events around back-to-back calls time the host's launches, printed
+     beside, before any capture and right after the kernel's own, with the
+     host's cost a call),
+     the card's launch floor (a one-element fill_), `rsort_schedule` and
+     K2 at `tune_rsort_spec`'s probe capacity the same way, and one
+     `rsort_schedule` call's device events (after the gather: the
+     full_perm cast, K1 and K2, gated).
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -93,6 +106,7 @@ import traceback
 import numpy as np
 import torch
 
+from nlos_gaussian_renderer_tpu_torch.tools import schedbench
 from nlos_gaussian_renderer_tpu_torch.tools import (
     C_LIGHT,
     DELTA_T,
@@ -512,11 +526,12 @@ def main() -> int:
     kernel_rows = {}
 
     @torch.no_grad()
-    def rsort_kernels(sp, tag=""):
+    def rsort_kernels(sp, tag="", field=True):
         """Cull the 100k scene at the centre camera with spec `sp` and hold
-        K1-K4 to their plain versions (K1/K2 exactly equal; K3 rel_l2 <=
-        1e-5; K4 <= 1e-4 over visited blocks, zeros elsewhere). Returns the
-        four kernels' rows (errors, times, bounds) and the cull's operands."""
+        K1/K2 (every output exactly equal, a second launch equal to the
+        first) and, with `field`, K3/K4 to their plain versions (K3 rel_l2
+        <= 1e-5; K4 <= 1e-4 over visited blocks, zeros elsewhere). Returns
+        the kernels' rows (errors, times, bounds) and the cull's operands."""
         grid = shell_grid(pcam, box, NS, START, END, C_LIGHT, DELTA_T)
         w = channel_weights(scene, pcam, 0, settings)
         gfeat = scene.quadratic_form()
@@ -527,17 +542,53 @@ def main() -> int:
         kb = tiles.words.shape[0] // sp.g_tile
         n_tt, n_pt = -(-NS // sp.t_theta), -(-NS // sp.t_phi)
         n_ch = -(-nb // sp.t_chunk)
-        words = tiles.words.reshape(kb, sp.g_tile).contiguous()
-        lo = tiles.table[:, n_gw + 1].reshape(kb, sp.g_tile).contiguous()
-        hi = tiles.table[:, n_gw + 2].reshape(kb, sp.g_tile).contiguous()
         tb = n_ch * sp.t_chunk
         n_items = int(tiles.n_items[0])
         check(not bool(tiles.overflowed), f"rsort cull fits{tag}")
         log(f"KB={kb} T_ang={n_tt * n_pt} chunks={n_ch} x {sp.t_chunk} bins "
             f"n_items={n_items} w_max={sp.w_max}{tag}")
+        rows = {}
+
+        def max_err(got, ref):  # K1/K2 outputs are ints and bools
+            return max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, ref))
+
+        # K1 reads the padded table in place; K2 writes every output itself.
+        padded = tiles.table.detach()
+        k1 = lambda: fr.cull_reduce(padded, n_gw, sp.g_tile, grid.r, n_tt, n_pt, tb)
+        p1 = lambda: fr._cull_reduce_plain(padded, n_gw, sp.g_tile, grid.r, n_tt, n_pt, tb)
+        o1, r1 = k1(), p1()
+        check(all(torch.equal(a, b) for a, b in zip(o1, r1)),
+              f"K1 cull_reduce == plain (exact: words, abs_lo, abs_hi){tag}")
+        check(all(torch.equal(a, b) for a, b in zip(k1(), o1)),
+              f"K1 second launch equals the first bit for bit{tag}")
+        _, alo, ahi = o1
+        # K1/K2's own times come from the schedule phase (`schedbench`).
+        rows["cull_reduce"] = dict(
+            max_abs_err=max_err(o1, r1), plain_ms=cuda_time(p1, 10),
+            # The three columns read, the words and both ranges written.
+            bound=bound(f"cull_reduce{tag}", f"{kb * n_tt * n_pt * sp.g_tile} (block, "
+                        "tile, row) tests", 12 * padded.shape[0] + nbytes(grid.r, *o1),
+                        2 * kb * n_tt * n_pt * sp.g_tile, 0))
+
+        k2 = lambda: fr.build_work_lists(alo, ahi, n_ch, sp.t_chunk, sp.w_max)
+        p2 = lambda: fr._build_work_lists_plain(alo, ahi, n_ch, sp.t_chunk, sp.w_max)
+        o2, r2 = k2(), p2()
+        check(all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                  for a, b in zip(o2, r2)),
+              f"K2 build_work_lists == plain (exact, all outputs, zero tails){tag}")
+        check(all(torch.equal(a, b) for a, b in zip(k2(), o2)),
+              f"K2 second launch equals the first bit for bit{tag}")
+        rows["build_work_lists"] = dict(
+            max_abs_err=max_err(o2, r2), plain_ms=cuda_time(p2, 10),
+            bound=bound(f"build_work_lists{tag}", f"{kb * n_tt * n_pt} pairs -> "
+                        f"{n_items} items", nbytes(alo, ahi, *o2),
+                        4 * kb * n_tt * n_pt, 0))
+        if not field:
+            return rows, None
 
         # Work of the field kernels K3-K6: member rows of each item, its
         # bins, and the tile's rays.
+        words = tiles.words.reshape(kb, sp.g_tile)
         lists = tiles.fwd[:, :n_items].long()
         memb = fr._member_of(words[lists[2]], lists[0][:, None], n_tt, n_pt)
         rows_it = memb.sum(1).double()
@@ -546,7 +597,6 @@ def main() -> int:
         row_rays = float((rows_it * s_ang).sum())
         triples = float((rows_it * bins_it * s_ang).sum())
         c = w.shape[1]
-        rows = {}
         geo = fr.RSortGeometry(n_tt, n_pt, n_ch, sp.t_chunk, sp.g_tile, s_ang, sp.t_phi)
         work = cta_work(tiles.fwd, tiles.bwd, tiles.n_items, geo)
         sizes = {"K3": f"I {fr.FWD_GROUP_ITEMS}", "K4": f"U {fr.BWD_UNIT_BINS}",
@@ -560,30 +610,6 @@ def main() -> int:
         for k in ("K3", "K4") + (("K5", "K6") if not tag else ()):
             r = float(work[f"{k} units"].max() / work[f"{k} units"].mean())
             check(r <= 2.0, f"{k} per-CTA work max/mean {r:.3f} <= 2{tag}")
-
-        k1 = lambda: fr.cull_reduce(words, lo, hi, grid.r, n_tt, n_pt, tb)
-        p1 = lambda: fr._cull_reduce_plain(words, lo, hi, grid.r, n_tt, n_pt, tb)
-        (alo, ahi), (plo, phi_) = k1(), p1()
-        eq1 = torch.equal(alo, plo) and torch.equal(ahi, phi_)
-        check(eq1, f"K1 cull_reduce == plain (exact){tag}")
-        rows["cull_reduce"] = dict(
-            max_abs_err=float(max((alo - plo).abs().max(), (ahi - phi_).abs().max())),
-            ms=cuda_time(k1, 50), plain_ms=cuda_time(p1, 10),
-            bound=bound(f"cull_reduce{tag}", f"{kb * n_tt * n_pt * sp.g_tile} (block, "
-                        "tile, row) tests", nbytes(words, lo, hi, grid.r, alo, ahi),
-                        2 * kb * n_tt * n_pt * sp.g_tile, 0))
-
-        k2 = lambda: fr.build_work_lists(alo, ahi, n_ch, sp.t_chunk, sp.w_max)
-        p2 = lambda: fr._build_work_lists_plain(alo, ahi, n_ch, sp.t_chunk, sp.w_max)
-        ok_k, ok_p = k2(), p2()
-        eq2 = all(torch.equal(a, b) for a, b in zip(ok_k, ok_p))
-        check(eq2, f"K2 build_work_lists == plain (exact, all outputs){tag}")
-        err2 = max(float((a - b).abs().max()) for a, b in zip(ok_k, ok_p))
-        rows["build_work_lists"] = dict(
-            max_abs_err=err2, ms=cuda_time(k2, 50), plain_ms=cuda_time(p2, 10),
-            bound=bound(f"build_work_lists{tag}", f"{kb * n_tt * n_pt} pairs -> "
-                        f"{n_items} items", nbytes(alo, ahi, *ok_k),
-                        4 * kb * n_tt * n_pt, 0))
 
         tp = tf.TileSpec(t_theta=sp.t_theta, t_phi=sp.t_phi, t_r=sp.t_chunk)
         xfeat, centers = tf.tile_points_centered_direct_t(
@@ -640,9 +666,11 @@ def main() -> int:
 
     def log_rows(rows, tag=""):
         for name, row in rows.items():
-            log(f"{name}{tag}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"bound {row['bound'][0]:.4f} ms ({row['bound'][2]}), "
-                f"max_abs_err {row['max_abs_err']:.3e}, on {card}")
+            ms = (f"{row['ms']:.5f} ms (CUDA events)" if "ms" in row
+                  else "timed in the schedule phase")
+            log(f"{name}{tag}: kernel {ms}, plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound'][0]:.5f} ms ({row['bound'][2]}), max_abs_err "
+                f"{row['max_abs_err']:.3e}, on {card}")
 
     @phase("kernels vs plain versions (100k, cam 0)")
     def kernels_vs_plain():
@@ -818,12 +846,23 @@ def main() -> int:
         # The spec `tools/microbench --rsort` and cullbench tune: 7 radial
         # chunks, where the train step's single chunk covers all 200 bins.
         sp = fr.tune_rsort_spec(scene, PROBE_CAMS, box, NS, START, END, C_LIGHT, DELTA_T,
-                                base=fr.RSortSpec(t_chunk=32, gate_bins=4))
+                                base=schedbench.BASES[32])
         rows, _ = rsort_kernels(sp, " (t_chunk 32)")
         log_rows(rows, " (t_chunk 32)")
-        return True
+        return sp
 
-    rsort_kernels_tools_spec()
+    spec32 = rsort_kernels_tools_spec()
+
+    @phase("K1/K2 vs plain versions at RSortSpec's default (100k, cam 0, t_chunk 8)")
+    def rsort_kernels_default_spec():
+        # 25 radial chunks: 200 (tile, chunk) buckets for K2's multi-split.
+        sp = fr.tune_rsort_spec(scene, PROBE_CAMS, box, NS, START, END, C_LIGHT, DELTA_T,
+                                base=schedbench.BASES[8])
+        rows, _ = rsort_kernels(sp, " (t_chunk 8)", field=False)
+        log_rows(rows, " (t_chunk 8)")
+        return sp
+
+    spec8 = rsort_kernels_default_spec()
 
     k9_bounds = {}  # (s, w) -> bound of the tools' K9 run at cnt = w
 
@@ -1112,6 +1151,40 @@ def main() -> int:
         return out
 
     grad_parity_100k()
+
+    @phase("rsort schedule: launch floor, K1/K2 from CUDA graphs, device events")
+    def schedule_costs():
+        # Last, so that no phase before it runs after a CUDA graph capture.
+        specs = {200: spec, 32: spec32, 8: spec8}
+        if None in specs.values():
+            raise RuntimeError("a spec's phase failed")
+        res = schedbench.run(scene, box, specs)
+        log(f"launch floor (one-element fill_ from a CUDA graph of {schedbench.REPS}): "
+            f"{res['launch_floor_ms']:.5f} ms, on {card}")
+        for tc in specs:
+            r = res[tc]
+            log(f"t_chunk {tc} (KB {r['kb']}, T_ang {r['t_ang']}, {r['n_ch']} chunks, "
+                f"{r['n_items']} items, w_max {r['w_max']}): CUDA graph replay K1 "
+                f"{r['k1_graph_ms']:.5f} ms, K2 {r['k2_graph_ms']:.5f} ms, rsort_schedule "
+                f"{r['schedule_graph_ms']:.5f} ms; CUDA events K1 {r['k1_event_ms']:.5f} / "
+                f"{r['k1_event_after_graph_ms']:.5f} ms, K2 {r['k2_event_ms']:.5f} / "
+                f"{r['k2_event_after_graph_ms']:.5f} ms (before any capture / right after its own); host "
+                f"clock K1 {r['k1_host_ms']:.5f} ms, K2 {r['k2_host_ms']:.5f} ms, "
+                f"rsort_schedule {r['schedule_host_ms']:.5f} ms a call; one rsort_schedule "
+                f"call: {r['events']} device events, {r['events_after_gather']} after the "
+                f"gather {r['after_gather']}, device {r['device_ms']:.5f} ms (K1 "
+                f"{r['k1_device_ms']:.5f}, K2 {r['k2_device_ms']:.5f}); K2 at the probe "
+                f"capacity (KB {r['probe_kb']}, {r['probe_groups']} groups, w "
+                f"{r['probe_w']}): {r['k2_probe_graph_ms']:.5f} ms, on {card}")
+            check(r["events_after_gather"] == 3,
+                  f"t_chunk {tc}: rsort_schedule launches the full_perm cast, K1 and K2 "
+                  f"after the gather, nothing else ({r['events_after_gather']} events)")
+        # The kernels line: the train spec's graph replay.
+        kernel_rows["cull_reduce"]["ms"] = res[200]["k1_graph_ms"]
+        kernel_rows["build_work_lists"]["ms"] = res[200]["k2_graph_ms"]
+        return res
+
+    schedule_costs()
     if (failures or None in trained.values() or tools_counts is None
             or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")

@@ -35,8 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (the last pointer is the stream).
 SIGNATURES = {
-    "cull_reduce": [_P] * 6 + [_I] * 7 + [_P],
-    "build_work_lists": [_P] * 2 + [_I] * 5 + [_P] * 6 + [_P],
+    "cull_reduce": [_P, _I, _I] + [_P] * 4 + [_I] * 7 + [_P],
+    "build_work_lists": [_P] * 2 + [_I] * 6 + [_P] * 8 + [_P],
     "rsort_fwd": [_P] * 10 + [_I] * 15 + [_P],
     "rsort_bwd": [_P] * 10 + [_I] * 15 + [_P],
     "analytic_fwd": [_P] * 11 + [_I] * 16 + [_P],

@@ -14,10 +14,14 @@ scan point:
   3. **Wide gather** (`WidePadGather`): the differentiable forms|weights and
      the geometry columns ride one row gather into the padded layout; the
      backward is the inverse-permutation gather.
-  4. **Work lists**: kernel K1 (`cull_reduce`) reduces each (block, tile)
-     pair to an absolute active-bin range; kernel K2 (`build_work_lists`)
-     expands pairs over radial chunks into the block-major backward list and
-     the (tile, chunk, block)-sorted forward list.
+  4. **Work lists**: kernel K1 (`cull_reduce`) reads the geometry columns
+     of the padded table in place and reduces each (block, tile) pair to an
+     absolute active-bin range (writing the int32 words beside); kernel K2
+     (`build_work_lists`) expands pairs over radial chunks into the
+     block-major backward list and the (tile, chunk, block)-sorted forward
+     list, and writes every other output of the schedule (counts, has-work
+     and overflow flags, zero tails): after the gather the schedule
+     launches one cast, K1 and K2 (`_lists_from_rows`).
   5. **Field**: kernel K3 (`rsort_fwd`) sums each output tile's items;
      kernel K4 (`rsort_bwd`) accumulates each Gaussian block's gradient rows
      (`RSortField`, an autograd Function).
@@ -187,8 +191,11 @@ def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
     counts = mask.reshape(g, n_tt * n_pt).sum(dim=0, dtype=torch.int32)
 
     b_t, b_p, b_total = _rect_bits(n_tt, n_pt)
-    if b_total > 30:
-        raise ValueError(f"rect word needs {b_total} bits at {n_tt}x{n_pt} tiles")
+    if b_total > 23:
+        raise ValueError(
+            f"rect word needs {b_total} bits (> 23): it rides the padded table as "
+            f"an f32, exact to 24 bits, at this tile grid ({n_tt}x{n_pt})"
+        )
     idx_t = torch.arange(n_tt, dtype=torch.int32, device=means.device)
     idx_p = torch.arange(n_pt, dtype=torch.int32, device=means.device)
     th_lo_i = torch.where(m_th, idx_t[None, :], n_tt).amin(dim=1)
@@ -292,38 +299,48 @@ class WidePadGather(torch.autograd.Function):
 # K1 ---------------------------------------------------------------------------
 
 
-def cull_reduce(words, lo, hi, r, n_tt: int, n_pt: int, total_bins: int):
-    """Per-(block, tile) absolute active-bin ranges.
+def cull_reduce(table, col: int, g_tile: int, r, n_tt: int, n_pt: int,
+                total_bins: int):
+    """Per-(block, tile) absolute active-bin ranges, read from the padded table.
 
-    words (KB, g_tile) int32 rect words; lo/hi (KB, g_tile) f32 radial
-    interval ends d -+ radius; r (num_r,) f32 radii. Returns (abs_lo, abs_hi)
-    (KB, T_ang) int32: bin a is active for the pair iff the union of its
-    members' intervals, widened by half a bin and 1e-4 bin, holds r0 + a*dr.
-    Empty pairs and pairs outside the bins encode (total_bins, -1).
+    table (G_pad, n) f32 padded rows (`WidePadGather`'s output, read in
+    place): columns col, col + 1, col + 2 hold each row's rect word (exact in
+    f32: `_cull_geometry` refuses words over 23 bits), d - radius and
+    d + radius; r (num_r,) f32 radii. Returns (words (G_pad,) int32,
+    abs_lo, abs_hi (KB, T_ang) int32): bin a is active for the pair iff the
+    union of its members' intervals, widened by half a bin and 1e-4 bin,
+    holds r0 + a*dr. Empty pairs and pairs outside the bins encode
+    (total_bins, -1).
     """
-    if on_cpu(words, lo, hi, r):
-        return _cull_reduce_plain(words, lo, hi, r, n_tt, n_pt, total_bins)
-    kb, gt = words.shape
-    t_ang = n_tt * n_pt
-    b_t, b_p, _ = _rect_bits(n_tt, n_pt)
-    check_tensor(words, "words", torch.int32)
-    check_tensor(lo, "lo", torch.float32, (kb, gt))
-    check_tensor(hi, "hi", torch.float32, (kb, gt))
+    if on_cpu(table, r):
+        return _cull_reduce_plain(table, col, g_tile, r, n_tt, n_pt, total_bins)
+    g_pad, n_col = table.shape
+    check_tensor(table, "table", torch.float32)
     check_tensor(r, "r", torch.float32)
+    if col + 3 > n_col:
+        raise ValueError(f"table has {n_col} columns, K1 reads {col}..{col + 2}")
+    if g_tile < 1 or g_pad % g_tile:
+        raise ValueError(f"g_tile={g_tile} does not divide the table's {g_pad} rows")
     if r.numel() < 2:
         raise ValueError("need at least two radial bins")
-    abs_lo = torch.empty((kb, t_ang), dtype=torch.int32, device=words.device)
+    kb = g_pad // g_tile
+    b_t, b_p, _ = _rect_bits(n_tt, n_pt)
+    words = torch.empty(g_pad, dtype=torch.int32, device=table.device)
+    abs_lo = torch.empty((kb, n_tt * n_pt), dtype=torch.int32, device=table.device)
     abs_hi = torch.empty_like(abs_lo)
     KERNELS["cull_reduce"].launch(
-        ptr(words), ptr(lo), ptr(hi), ptr(r), ptr(abs_lo), ptr(abs_hi),
-        kb, gt, n_tt, n_pt, b_t, b_p, total_bins,
+        ptr(table), n_col, col, ptr(r), ptr(words), ptr(abs_lo), ptr(abs_hi),
+        kb, g_tile, n_tt, n_pt, b_t, b_p, total_bins,
     )
-    return abs_lo, abs_hi
+    return words, abs_lo, abs_hi
 
 
-def _cull_reduce_plain(words, lo, hi, r, n_tt, n_pt, total_bins):
-    kb, gt = words.shape
-    memb = decode_rect_members(words.reshape(-1), n_tt, n_pt).reshape(kb, gt, -1)
+def _cull_reduce_plain(table, col, g_tile, r, n_tt, n_pt, total_bins):
+    kb = table.shape[0] // g_tile
+    words = table[:, col].to(torch.int32)
+    lo = table[:, col + 1].reshape(kb, g_tile)
+    hi = table[:, col + 2].reshape(kb, g_tile)
+    memb = decode_rect_members(words, n_tt, n_pt).reshape(kb, g_tile, -1)
     inf = torch.tensor(float("inf"), dtype=lo.dtype, device=lo.device)
     blk_lo = torch.where(memb, lo[:, :, None], inf).amin(dim=1)
     blk_hi = torch.where(memb, hi[:, :, None], -inf).amax(dim=1)
@@ -338,46 +355,83 @@ def _cull_reduce_plain(words, lo, hi, r, n_tt, n_pt, total_bins):
     abs_hi = torch.where(
         valid, torch.clamp(raw_hi, 0, total_bins - 1).to(torch.int32), -1
     )
-    return abs_lo, abs_hi
+    return words, abs_lo, abs_hi
 
 
 # K2 ---------------------------------------------------------------------------
 
+K2_THREADS = 1024  # one CTA builds the lists (`csrc/build_work_lists.cu`)
+_SMEM_OPTIN = 232448  # an H100 CTA's shared memory limit (227 KB)
 
-def build_work_lists(abs_lo, abs_hi, n_ch: int, t_chunk: int, w: int):
+
+class WorkLists(NamedTuple):
+    """Every output of the schedule K2 writes (the `RSortTiles` fields)."""
+
+    bwd: torch.Tensor  # (6, W) int32, block-major; zero past n_items
+    fwd: torch.Tensor  # (6, W) int32, stable by (tile, chunk, block); zero past n_items
+    n_raw: torch.Tensor  # (1,) int32 UNCLIPPED item count
+    n_items: torch.Tensor  # (1,) int32 min(n_raw, W)
+    tile_has_work: torch.Tensor  # (T_ang, n_ch) bool, written items only
+    blk_has_work: torch.Tensor  # (KB,) bool, written items only
+    overflowed: torch.Tensor  # () bool, n_raw > W
+
+
+def _split_warps(nq: int, smem_limit: int) -> int:
+    """The warps of K2's multi-split: the most (up to 32, a power of two)
+    whose (bucket, warp) counters and bucket starts fit in `smem_limit`
+    bytes; 0 when not even one warp's do."""
+    split = K2_THREADS // 32
+    while split and 4 * (nq * split + nq + 1) > smem_limit:
+        split //= 2
+    return split
+
+
+def build_work_lists(abs_lo, abs_hi, n_ch: int, t_chunk: int, w: int) -> WorkLists:
     """Expand (block, tile) bin ranges into the two work lists.
 
     abs_lo/abs_hi (KB, T_ang) int32 from `cull_reduce`. Each non-empty pair
-    expands to one item per radial chunk its range touches. Returns
-    (bwd (6, W), fwd (6, W), n_raw (1,), tile_w (T_ang*n_ch,), blk_w (KB,)),
-    all int32: the backward list in pair (block-major) order, the forward
-    list stably sorted by (tile, chunk, block), the UNCLIPPED item count,
-    and has-work flags of the WRITTEN items. Only the first `w` items are
-    written (overflow = n_raw > w); slots past them are zero.
+    expands to one item per radial chunk its range touches: the backward
+    list in pair (block-major) order, the forward list stably sorted by
+    (tile, chunk, block). Only the first `w` items are written (overflow =
+    n_raw > w); slots past them are zero, and the has-work flags mark the
+    written items only. K2 writes every output itself: the wrapper fills
+    nothing.
     """
     if on_cpu(abs_lo, abs_hi):
         return _build_work_lists_plain(abs_lo, abs_hi, n_ch, t_chunk, w)
     kb, t_ang = abs_lo.shape
     check_tensor(abs_lo, "abs_lo", torch.int32)
     check_tensor(abs_hi, "abs_hi", torch.int32, (kb, t_ang))
+    if w < 1:
+        raise ValueError(f"work-list capacity w={w} must be positive")
     dev = abs_lo.device
+    limit = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", _SMEM_OPTIN) - 256
+    nq = t_ang * n_ch
+    split = _split_warps(nq, limit)
+    if not split:
+        raise ValueError(
+            f"K2 needs {4 * (2 * nq + 1)} bytes of shared memory for {nq} buckets "
+            f"({t_ang} tiles x {n_ch} radial chunks) at one warp; a CTA has "
+            f"{limit}. Use fewer, larger radial chunks or angular tiles."
+        )
     i32 = dict(dtype=torch.int32, device=dev)
-    bwd = torch.zeros((6, w), **i32)
-    fwd = torch.zeros((6, w), **i32)
-    n_raw = torch.zeros((1,), **i32)
-    tile_w = torch.zeros((t_ang * n_ch,), **i32)
-    blk_w = torch.zeros((kb,), **i32)
-    # Scratch: per-pair chunk offsets, then the (bucket, block) occupancy.
-    scratch = torch.zeros((kb * t_ang + t_ang * n_ch * kb,), **i32)
-    KERNELS["build_work_lists"].launch(
-        ptr(abs_lo), ptr(abs_hi), kb, t_ang, n_ch, t_chunk, w,
-        ptr(bwd), ptr(fwd), ptr(n_raw), ptr(tile_w), ptr(blk_w),
-        ptr(scratch),
+    b8 = dict(dtype=torch.bool, device=dev)
+    out = WorkLists(
+        bwd=torch.empty((6, w), **i32), fwd=torch.empty((6, w), **i32),
+        n_raw=torch.empty((1,), **i32), n_items=torch.empty((1,), **i32),
+        tile_has_work=torch.empty((t_ang, n_ch), **b8),
+        blk_has_work=torch.empty((kb,), **b8), overflowed=torch.empty((), **b8),
     )
-    return bwd, fwd, n_raw, tile_w, blk_w
+    off = torch.empty((kb * t_ang,), **i32)  # scratch: each pair's first slot
+    KERNELS["build_work_lists"].launch(
+        ptr(abs_lo), ptr(abs_hi), kb, t_ang, n_ch, t_chunk, w, split,
+        *(ptr(t) for t in out), ptr(off),
+    )
+    return out
 
 
-def _build_work_lists_plain(abs_lo, abs_hi, n_ch, t_chunk, w):
+def _build_work_lists_plain(abs_lo, abs_hi, n_ch, t_chunk, w) -> WorkLists:
     """The JAX XLA-fallback chain (`rsort_cull`'s prefix-sum expansion and
     argsort), with the kernel's has-work and zero-tail semantics."""
     kb, t_ang = abs_lo.shape
@@ -425,10 +479,29 @@ def _build_work_lists_plain(abs_lo, abs_hi, n_ch, t_chunk, w):
     n_items = torch.clamp(n_raw, max=w)
     keep = slots < n_items
     i32 = torch.int32
-    return (
-        (bwd * keep).to(i32), (fwd * keep).to(i32),
-        n_raw.reshape(1).to(i32), tile_w.to(i32), blk_w.to(i32),
+    return WorkLists(
+        bwd=(bwd * keep).to(i32), fwd=(fwd * keep).to(i32),
+        n_raw=n_raw.reshape(1).to(i32), n_items=n_items.reshape(1).to(i32),
+        tile_has_work=tile_w.reshape(t_ang, n_ch) > 0, blk_has_work=blk_w > 0,
+        overflowed=n_raw > w,
     )
+
+
+def _multisplit_plain(q, nq: int, split: int):
+    """K2's placement arrays for items of buckets `q` (n,) in backward order:
+    `split` warps take contiguous segments of whole 32-item rounds. Returns
+    (seg (n,) each item's warp, base (nq, split) the first forward slot of
+    warp k's items of bucket q, start (nq + 1,) each bucket's first slot);
+    an item goes to base[q, seg] plus the number of earlier items of its
+    segment in its bucket."""
+    n = q.shape[0]
+    rounds = _cdiv(n, 32)
+    seg = torch.arange(n, device=q.device) // (32 * max(_cdiv(rounds, split), 1))
+    cnt = torch.zeros(nq * split, dtype=torch.int64, device=q.device)
+    cnt.index_add_(0, q.long() * split + seg, torch.ones_like(seg))
+    base = (torch.cumsum(cnt, 0) - cnt).reshape(nq, split)
+    start = torch.cat([base[:, 0], cnt.sum().reshape(1)])
+    return seg, base, start
 
 
 # K3 / K4 ----------------------------------------------------------------------
@@ -794,12 +867,7 @@ def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
     """Layout, wide gather and work lists from per-Gaussian cull geometry
     (the half of `rsort_cull` after `_cull_geometry`)."""
     g = d.shape[0]
-    n_ch = _cdiv(r.shape[0], spec.t_chunk)
-    t_ang = n_tt * n_pt
-    g_pad = _padded_rows(g, spec)
-    kb = g_pad // spec.g_tile
     layout = _layout_from_geometry(d, word, valid_g, n_tt, n_pt, spec, d_hi=r[-1])
-
     geom = torch.stack(
         [
             word.to(torch.float32),
@@ -809,39 +877,39 @@ def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
         ],
         dim=1,
     )
-    n_gw = 0 if gw is None else gw.shape[1]
     per_row = WidePadGather.apply(
         geom.new_zeros(g, 0) if gw is None else gw, geom, layout.perm,
         layout.src, layout.inv_perm,
     )
-    table = None if gw is None else per_row
-    geom_r = per_row[:, n_gw:].detach()
-    full_perm = geom_r[:, 3].to(torch.int64)
-    words_pad = geom_r[:, 0].to(torch.int32)
-
-    abs_lo, abs_hi = cull_reduce(
-        words_pad.reshape(kb, spec.g_tile),
-        geom_r[:, 1].reshape(kb, spec.g_tile).contiguous(),
-        geom_r[:, 2].reshape(kb, spec.g_tile).contiguous(),
-        r, n_tt, n_pt, n_ch * spec.t_chunk,
-    )
-    bwd, fwd, n_raw, tile_w, blk_w = build_work_lists(
-        abs_lo, abs_hi, n_ch, spec.t_chunk, spec.w_max
-    )
+    n_gw = 0 if gw is None else gw.shape[1]
+    full_perm, words, lists = _lists_from_rows(per_row.detach(), n_gw, r, n_tt,
+                                               n_pt, spec)
     return RSortTiles(
         full_perm=full_perm,
         inv_perm=layout.inv_perm,
-        words=words_pad[:, None],
+        words=words[:, None],
         counts=counts,
-        fwd=fwd,
-        bwd=bwd,
-        n_items=torch.clamp(n_raw, max=spec.w_max),
-        tile_has_work=tile_w.reshape(t_ang, n_ch) > 0,
-        blk_has_work=blk_w > 0,
+        fwd=lists.fwd,
+        bwd=lists.bwd,
+        n_items=lists.n_items,
+        tile_has_work=lists.tile_has_work,
+        blk_has_work=lists.blk_has_work,
         n_groups=layout.n_groups,
-        overflowed=n_raw[0] > spec.w_max,
-        table=table,
+        overflowed=lists.overflowed,
+        table=None if gw is None else per_row,
     )
+
+
+def _lists_from_rows(rows, n_gw: int, r, n_tt: int, n_pt: int, spec: RSortSpec):
+    """What the schedule runs after the gather, on the padded rows [gw |
+    word | d-lo | d-hi | iota]: the `full_perm` cast, K1 and K2, nothing
+    else. Returns (full_perm, words, WorkLists)."""
+    n_ch = _cdiv(r.shape[0], spec.t_chunk)
+    full_perm = rows[:, n_gw + 3].to(torch.int64)
+    words, abs_lo, abs_hi = cull_reduce(rows, n_gw, spec.g_tile, r, n_tt, n_pt,
+                                        n_ch * spec.t_chunk)
+    return full_perm, words, build_work_lists(abs_lo, abs_hi, n_ch, spec.t_chunk,
+                                              spec.w_max)
 
 
 def rsort_cull(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
@@ -922,16 +990,7 @@ def tune_rsort_spec(scene, camera_positions, box_points,
     cameras with generous probe capacities."""
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 
-    g = scene.capacity
-    t_ang = _cdiv(num_sampling_points, base.t_theta) * _cdiv(
-        num_sampling_points, base.t_phi
-    )
-    n_ch = _cdiv(end - start, base.t_chunk)
-    probe_groups = min(max(4 * base.max_groups, 64), 512)
-    kb_probe = _padded_rows(g, base._replace(max_groups=probe_groups)) // base.g_tile
-    probe = base._replace(
-        max_groups=probe_groups, w_max=max(kb_probe * t_ang * n_ch, 1)
-    )
+    probe = probe_spec(base, scene.capacity, num_sampling_points, end - start)
     dev = scene.means.device
     cams = torch.as_tensor(camera_positions, dtype=torch.float32, device=dev)
     max_items, max_groups_obs = 1, 1
@@ -944,5 +1003,19 @@ def tune_rsort_spec(scene, camera_positions, box_points,
         max_groups_obs = max(max_groups_obs, int(t.n_groups))
     return base._replace(
         w_max=int(max_items * headroom) + 8,
-        max_groups=min(max_groups_obs + max(4, max_groups_obs // 4), probe_groups),
+        max_groups=min(max_groups_obs + max(4, max_groups_obs // 4), probe.max_groups),
     )
+
+
+def probe_spec(base: RSortSpec, g: int, num_sampling_points: int,
+               num_bins: int) -> RSortSpec:
+    """The capacity `tune_rsort_spec` culls its probe cameras with: 4x the
+    base's pattern groups (64 to 512) and a slot for every (block, tile,
+    chunk) triple, so no probe overflows."""
+    t_ang = _cdiv(num_sampling_points, base.t_theta) * _cdiv(
+        num_sampling_points, base.t_phi
+    )
+    n_ch = _cdiv(num_bins, base.t_chunk)
+    probe_groups = min(max(4 * base.max_groups, 64), 512)
+    kb = _padded_rows(g, base._replace(max_groups=probe_groups)) // base.g_tile
+    return base._replace(max_groups=probe_groups, w_max=max(kb * t_ang * n_ch, 1))

@@ -1,13 +1,16 @@
 """Measurement tools of the port: the counterparts of the JAX package's
-`tools/microbench.py`, `tools/cullbench.py` and `tools/grad_parity.py`.
+`tools/microbench.py`, `tools/cullbench.py` and `tools/grad_parity.py`, and
+`schedbench`, which times the rsort schedule's work-list kernels K1/K2.
 
 Each runs on the CUDA card by default and raises where there is none;
-given `device="cpu"` (or `--cpu`) it runs the kernels' plain versions on the
-CPU, whose times are those of PyTorch's CPU kernels, not of the card.
+given `device="cpu"` (or `--cpu`) the first three run the kernels' plain
+versions on the CPU, whose times are those of PyTorch's CPU kernels, not of
+the card.
 
     python -m nlos_gaussian_renderer_tpu_torch.tools.microbench [--rsort] [--cpu]
     python -m nlos_gaussian_renderer_tpu_torch.tools.cullbench [--cpu]
     python -m nlos_gaussian_renderer_tpu_torch.tools.grad_parity [--rows ...] [--fd] [--cpu]
+    python -m nlos_gaussian_renderer_tpu_torch.tools.schedbench  (the card only: CUDA graphs)
 """
 
 from __future__ import annotations

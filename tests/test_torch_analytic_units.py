@@ -83,10 +83,10 @@ def skewed_case(name):
         lo[:, 1:], hi[:, 1:] = total, -1
         lo[:, 0], hi[:, 0] = rng.integers(10, 13, kb), rng.integers(16, 20, kb)
         w = kb
-    bwd, fwd, n_raw, _, _ = fr._build_work_lists_plain(
+    wl = fr._build_work_lists_plain(
         torch.as_tensor(lo, dtype=torch.int32), torch.as_tensor(hi, dtype=torch.int32),
         geo.n_ch, geo.t_chunk, w)
-    return fwd, bwd, torch.clamp(n_raw, max=w), geo
+    return wl.fwd, wl.bwd, wl.n_items, geo
 
 
 def lists(case):

@@ -43,3 +43,21 @@ def test_port_has_the_mirrored_modules():
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
                        "rsort_bwd.cu", "analytic_fwd.cu", "analytic_bwd.cu",
                        "field_fwd.cu", "field_bwd.cu", "worklist_add.cu"}
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each kernel's `extern "C"` entry takes what `cuda_build.SIGNATURES`
+    passes it: a pointer (or the stream) where the C side has one, an int
+    where it has an int, in order."""
+    import re
+
+    from nlos_gaussian_renderer_tpu_torch.ops.cuda_build import _P, SIGNATURES
+
+    seen = set()
+    for path in sorted((PORT / "csrc").glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)\s*\{', path.read_text(), re.S):
+            args = [a.strip() for a in m.group(2).split(",")]
+            is_ptr = ["*" in a or "cudaStream_t" in a for a in args]
+            assert [t is _P for t in SIGNATURES[m.group(1)]] == is_ptr, m.group(1)
+            seen.add(m.group(1))
+    assert seen == set(SIGNATURES)

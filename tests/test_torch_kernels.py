@@ -17,7 +17,14 @@ g_tile 512 and two channels; other unit widths are refused). Tolerances:
 K1/K2 outputs exactly equal; K3, K5
 and K7 rel_l2 <= 1e-5; K4, K6 and K8 rel_l2 <= 1e-4 (the kernels evaluate
 the forms and section terms in the plain versions' operation order; only
-the order of the sums over Gaussians, bins and samples differs); K8 rows at
+the order of the sums over Gaussians, bins and samples differs); K1/K2 also
+at 1, 7 and 25 radial chunks, on hand-made ranges (empty, exactly full, one
+item over, one block over every bin, a capacity whose tail extra CTAs
+zero), twice and after the allocator is poisoned with 0x7f7f7f7f (K2 writes
+every slot of every output), K1 also at g_tile 8, 48 and 1056 (not whole warps; over
+1024 rows), with the schedule's launches after the gather
+counted by the profiler (the full_perm cast, K1, K2) and too many buckets
+for shared memory refused; K8 rows at
 or past a tile's count exactly zero; K9 (`worklist_add`) bit for bit, as all
 addends of one element are equal, with blocks no item names exactly zero."""
 
@@ -99,28 +106,145 @@ def rel_l2(a, b):
     return float((a - b).norm() / (b.norm() + 1e-30))
 
 
-@pytest.mark.parametrize("t_chunk,w_max", [(8, 256), (80, 256), (8, 16)])
-def test_cull_reduce_and_build_work_lists_equal_plain(dev, t_chunk, w_max):
-    spec = SPEC._replace(t_chunk=t_chunk, gate_bins=8 if t_chunk == 8 else 80, w_max=w_max)
+def _poison_allocator(dev, tensors):
+    """Hand the caching allocator blocks of every size in `tensors` filled
+    with 0x7f7f7f7f: outputs allocated next start from garbage."""
+    junk = [torch.empty(t.numel() * t.element_size() // 4 + 1, dtype=torch.int32,
+                        device=dev).fill_(0x7F7F7F7F) for t in tensors for _ in range(2)]
+    torch.cuda.synchronize()
+    del junk
+
+
+def _k1_k2_equal_plain(dev, rows, n_gw, g_tile, r, n_tt, n_pt, n_ch, t_chunk, w):
+    """K1 then K2 against their plain versions on every output, bit for bit;
+    a second launch equal to the first; and both again after the allocator
+    is poisoned. Returns the kernels' (words, abs_lo, abs_hi, WorkLists)."""
+    tb = n_ch * t_chunk
+    before = cuda_build.launch_counts()
+    k1 = fr.cull_reduce(rows, n_gw, g_tile, r, n_tt, n_pt, tb)
+    p1 = fr._cull_reduce_plain(rows, n_gw, g_tile, r, n_tt, n_pt, tb)
+    assert all(torch.equal(a, b) for a, b in zip(k1, p1))
+    k2 = fr.build_work_lists(k1[1], k1[2], n_ch, t_chunk, w)
+    p2 = fr._build_work_lists_plain(k1[1], k1[2], n_ch, t_chunk, w)
+    for a, b in zip(k2, p2):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    for k in range(2):
+        if k:
+            _poison_allocator(dev, (*k1, *k2))
+        again1 = fr.cull_reduce(rows, n_gw, g_tile, r, n_tt, n_pt, tb)
+        again2 = fr.build_work_lists(k1[1], k1[2], n_ch, t_chunk, w)
+        assert all(torch.equal(a, b) for a, b in zip(again1, k1))
+        assert all(torch.equal(a, b) for a, b in zip(again2, k2))
+    after = cuda_build.launch_counts()
+    assert after["cull_reduce"] == before["cull_reduce"] + 3
+    assert after["build_work_lists"] == before["build_work_lists"] + 3
+    return (*k1, k2)
+
+
+# (t_chunk, w_max, end): bins 60..end. 100 bins: t_chunk 100, 15 and 4 give
+# 1, 7 and 25 radial chunks, the chunk counts of the bench spec, the tools'
+# and `RSortSpec`'s default at 200 bins; w_max 16 overflows; 70k is past a
+# tail CTA's share (K2 then zeroes its tail with extra CTAs).
+@pytest.mark.parametrize("t_chunk,w_max,end", [
+    (8, 256, 140), (80, 256, 140), (8, 16, 140), (100, 256, 160), (15, 256, 160),
+    (4, 1024, 160), (4, 70_000, 160),
+])
+def test_cull_reduce_and_build_work_lists_equal_plain(dev, t_chunk, w_max, end):
+    spec = SPEC._replace(t_chunk=t_chunk, w_max=w_max)
+    x = _inputs(dev, spec, end=end)
+    t, geo = x["tiles"], x["geo"]
+    assert geo.n_ch == -(-(end - 60) // t_chunk)
+    _, _, _, lists = _k1_k2_equal_plain(dev, t.table.detach(), x["n_gw"], spec.g_tile,
+                                        x["grid"].r, geo.n_tt, geo.n_pt, geo.n_ch,
+                                        t_chunk, w_max)
+    assert bool(t.overflowed) == (w_max == 16)
+    for a, b in zip(lists, (t.bwd, t.fwd, None, t.n_items, t.tile_has_work,
+                            t.blk_has_work, t.overflowed)):
+        assert b is None or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("g_tile", [8, 48, 1056])
+def test_cull_reduce_at_a_ragged_g_tile_equals_plain(dev, g_tile):
+    """K1 at blocks that are not whole warps (the CTA rounded up to one,
+    its threads past g_tile holding empty rows) and at a block over 1024
+    rows (walked in rounds), then K2: bit for bit, twice and after a
+    poisoned allocator."""
+    spec = SPEC._replace(g_tile=g_tile)
     x = _inputs(dev, spec)
     t, geo = x["tiles"], x["geo"]
-    kb = t.words.shape[0] // spec.g_tile
-    words = t.words.reshape(kb, -1).contiguous()
-    lo = t.table[:, x["n_gw"] + 1].reshape(kb, -1).contiguous()
-    hi = t.table[:, x["n_gw"] + 2].reshape(kb, -1).contiguous()
-    tb = geo.n_ch * spec.t_chunk
-    before = cuda_build.launch_counts()
-    alo, ahi = fr.cull_reduce(words, lo, hi, x["grid"].r, geo.n_tt, geo.n_pt, tb)
-    plo, phi = fr._cull_reduce_plain(words, lo, hi, x["grid"].r, geo.n_tt, geo.n_pt, tb)
-    assert torch.equal(alo, plo) and torch.equal(ahi, phi)
-    got = fr.build_work_lists(alo, ahi, geo.n_ch, spec.t_chunk, w_max)
-    ref = fr._build_work_lists_plain(alo, ahi, geo.n_ch, spec.t_chunk, w_max)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
-    after = cuda_build.launch_counts()
-    assert after["cull_reduce"] == before["cull_reduce"] + 1
-    assert after["build_work_lists"] == before["build_work_lists"] + 1
-    assert bool(t.overflowed) == (w_max == 16)
+    _, _, _, lists = _k1_k2_equal_plain(dev, t.table.detach(), x["n_gw"], g_tile,
+                                        x["grid"].r, geo.n_tt, geo.n_pt, geo.n_ch,
+                                        spec.t_chunk, spec.w_max)
+    assert int(lists.n_items[0]) > 0 and torch.equal(lists.fwd, t.fwd)
+
+
+def _edge_ranges(case, n_ch, dev, kb=12, t_ang=4, t_chunk=10):
+    """(abs_lo, abs_hi, w) (KB, T_ang) bin ranges: random (30% empty pairs),
+    none, exactly full, one item over capacity, one block over every bin,
+    and a capacity past one tail CTA's share."""
+    total = n_ch * t_chunk
+    rng = np.random.default_rng(n_ch)
+    lo = rng.integers(0, total, (kb, t_ang))
+    hi = np.minimum(lo + rng.integers(0, max(total // 3, 1), (kb, t_ang)), total - 1)
+    empty = rng.random((kb, t_ang)) < 0.3
+    lo[empty], hi[empty] = total, -1
+    if case == "empty":
+        lo[:], hi[:] = total, -1
+    elif case == "one_block_all_bins":
+        lo[5], hi[5] = 0, total - 1
+    n_raw = int(np.maximum(np.where(hi >= 0, hi // t_chunk, -1) - lo // t_chunk + 1, 0).sum())
+    w = {"empty": 16, "full": n_raw, "over_by_one": n_raw - 1,
+         "one_block_all_bins": n_raw + 8, "tail_ctas": 40_000}[case]
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    return as_t(lo), as_t(hi), w
+
+
+@pytest.mark.parametrize("n_ch", [1, 7, 25])
+@pytest.mark.parametrize("case", ["empty", "full", "over_by_one", "one_block_all_bins",
+                                  "tail_ctas"])
+def test_build_work_lists_edge_cases_equal_plain(dev, case, n_ch):
+    """K2 on every output bit for bit, twice, and after a poisoned
+    allocator: every slot of every output is written by the kernel."""
+    alo, ahi, w = _edge_ranges(case, n_ch, dev)
+    got = fr.build_work_lists(alo, ahi, n_ch, 10, w)
+    ref = fr._build_work_lists_plain(alo, ahi, n_ch, 10, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert bool(got.overflowed) == (case == "over_by_one")
+    for _ in range(2):
+        _poison_allocator(dev, got)
+        assert all(torch.equal(a, b) for a, b in zip(fr.build_work_lists(
+            alo, ahi, n_ch, 10, w), got))
+
+
+def test_schedule_launches_only_the_cast_k1_and_k2_after_the_gather(dev):
+    """What `rsort_schedule` runs after `WidePadGather`: one cast kernel
+    (full_perm), K1 and K2; no fill, copy or compare."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = SPEC._replace(t_chunk=8)
+    x = _inputs(dev, spec)
+    rows, geo = x["tiles"].table.detach(), x["geo"]
+    fr._lists_from_rows(rows, x["n_gw"], x["grid"].r, geo.n_tt, geo.n_pt, spec)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fr._lists_from_rows(rows, x["n_gw"], x["grid"].r, geo.n_tt, geo.n_pt, spec)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3, names
+    assert sum("cull_reduce" in n for n in names) == 1
+    assert sum("build_work_lists" in n for n in names) == 1
+    assert not any(k in n.lower() for n in names for k in ("fill", "memset", "compare"))
+
+
+def test_build_work_lists_refuses_too_many_buckets(dev):
+    """nq = 64 tiles x 1000 chunks: not even one warp's counters fit in a
+    CTA's shared memory; K2 raises, naming the sizes, and launches nothing."""
+    alo = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    before = cuda_build.launch_counts()["build_work_lists"]
+    with pytest.raises(ValueError, match="64 tiles x 1000 radial chunks"):
+        fr.build_work_lists(alo, alo, 1000, 1, 256)
+    assert cuda_build.launch_counts()["build_work_lists"] == before
 
 
 def _skewed_lists(x, spec, case):
@@ -131,11 +255,9 @@ def _skewed_lists(x, spec, case):
     t, geo = x["tiles"], x["geo"]
     if case == "cull":
         return t.fwd, t.bwd, t.n_items
-    kb = t.words.shape[0] // spec.g_tile
-    cols = [t.table[:, x["n_gw"] + q].reshape(kb, -1).contiguous() for q in (1, 2)]
     tb = geo.n_ch * spec.t_chunk
-    alo, ahi = fr._cull_reduce_plain(t.words.reshape(kb, -1), *cols, x["grid"].r,
-                                     geo.n_tt, geo.n_pt, tb)
+    _, alo, ahi = fr._cull_reduce_plain(t.table.detach(), x["n_gw"], spec.g_tile,
+                                        x["grid"].r, geo.n_tt, geo.n_pt, tb)
     w = spec.w_max
     if case == "one_block_all_bins":
         b = int(torch.nonzero(t.blk_has_work)[0, 0])
@@ -145,8 +267,8 @@ def _skewed_lists(x, spec, case):
         w = int((ahi[:, 0] >= 0).sum())
     else:
         alo[:], ahi[:] = tb, -1
-    bwd, fwd, n_raw, _, _ = fr._build_work_lists_plain(alo, ahi, geo.n_ch, spec.t_chunk, w)
-    return fwd, bwd, torch.clamp(n_raw, max=w)
+    wl = fr._build_work_lists_plain(alo, ahi, geo.n_ch, spec.t_chunk, w)
+    return wl.fwd, wl.bwd, wl.n_items
 
 
 @pytest.mark.parametrize("occ,t_chunk,g_tile,case", [

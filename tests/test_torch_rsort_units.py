@@ -89,10 +89,10 @@ def skewed_case(name):
     else:
         lo[:], hi[:] = total, -1
         w = 16
-    bwd, fwd, n_raw, _, _ = fr._build_work_lists_plain(
+    wl = fr._build_work_lists_plain(
         torch.as_tensor(lo, dtype=torch.int32), torch.as_tensor(hi, dtype=torch.int32),
         geo.n_ch, geo.t_chunk, w)
-    return fwd, bwd, torch.clamp(n_raw, max=w), geo
+    return wl.fwd, wl.bwd, wl.n_items, geo
 
 
 def lists(case):

@@ -178,3 +178,55 @@ def test_gate_bins_changes_nothing_in_the_port():
 def test_rows_without_a_counterpart_raise(row):
     with pytest.raises(ValueError, match="no counterpart"):
         gp.main(["--cpu", "--rows", f"sigma3,{row}"])
+
+
+def test_schedbench_inputs_on_cpu():
+    """`tools/schedbench`'s timed calls at 2k Gaussians (its timing needs the
+    card's graphs): the tuned specs of its three t_chunks, K2 and the whole
+    schedule giving the cull's own lists, and K2 at the probe capacity
+    `tune_rsort_spec` culls with (every (block, tile, chunk) triple), which
+    does not overflow."""
+    from nlos_gaussian_renderer_tpu_torch.tools import bench_scene
+    from nlos_gaussian_renderer_tpu_torch.tools import schedbench as sb
+
+    scene, box, _ = bench_scene(2000, device="cpu")
+    specs = sb.tuned_specs(scene, box)
+    assert list(specs) == list(sb.BASES)
+    for tc, spec in specs.items():
+        calls, size = sb._calls(scene, box, tc, spec)
+        assert size["n_ch"] == -(-200 // tc) and size["t_ang"] == 8
+        lists, tiles = calls["k2"](), calls["schedule"]()
+        assert int(lists.n_items[0]) == size["n_items"] > 0
+        assert torch.equal(lists.fwd, tiles.fwd) and torch.equal(lists.bwd, tiles.bwd)
+        assert size["probe_w"] == size["probe_kb"] * 8 * size["n_ch"]
+        probe = calls["k2_probe"]()
+        assert not bool(probe.overflowed) and int(probe.n_items[0]) > 0
+
+
+@pytest.mark.parametrize("t_chunk", [200, 32, 8])
+def test_schedbench_probe_is_the_capacity_tune_rsort_spec_probes_with(monkeypatch,
+                                                                       t_chunk):
+    """The probe capacity schedbench times K2 at is the spec every probe
+    camera of `tune_rsort_spec` is culled with (from the base spec, not
+    the tuned one)."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as tfr
+    from nlos_gaussian_renderer_tpu_torch.tools import NS, START, END, bench_scene
+    from nlos_gaussian_renderer_tpu_torch.tools import schedbench as sb
+
+    scene, box, _ = bench_scene(2000, device="cpu")
+    culled = []
+    cull = tfr.rsort_cull
+
+    def spy(*args, **kw):
+        culled.append(args[7])
+        return cull(*args, **kw)
+
+    monkeypatch.setattr(tfr, "rsort_cull", spy)
+    tuned = sb.tuned_specs(scene, box, (t_chunk,))[t_chunk]
+    monkeypatch.setattr(tfr, "rsort_cull", cull)
+    base = sb.BASES[t_chunk]
+    probe = tfr.probe_spec(base, scene.capacity, NS, END - START)
+    assert culled and all(s == probe for s in culled)
+    assert probe.max_groups == min(max(4 * base.max_groups, 64), 512) > tuned.max_groups
+    _, size = sb._calls(scene, box, t_chunk, tuned)
+    assert (size["probe_w"], size["probe_groups"]) == (probe.w_max, probe.max_groups)
