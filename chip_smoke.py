@@ -65,29 +65,38 @@ Phases:
      per step, the largest kernels, and the busy share (device time over
      the timed ms/step). A profiler that fails is reported, not fatal;
   7. K9 (`worklist_add`) against its plain version at the seven microbench
-     shapes and at a list with cnt < w: bit for bit, blocks no item names
-     exactly 0; the plain version timed, each shape's bound printed (this
-     phase runs right after phase 3), then `init_scene`'s KNN scale init:
-     the exact chunked KNN on the card against the CPU at 8192 points (rel
-     <= 1e-6) and the default call at 100k points, timed;
-  8. the tools at JAX's sizes, counters reset before and read after: sort,
-     scatter-add, the K9 microbenchmark (K9's and the `index_add_`
-     yardstick's times, beside phase 7's bounds), the rsort step's
-     components (t_chunk 32, gates 4 and 32) and cullbench; every time
-     finite, no cull overflowed, K9 and K1-K4 launched;
-  9. 100k gradient parity (`tools/grad_parity.py`, rows sigma3 and
+     shapes, at a list with cnt < w, at the tools' skewed list (one block
+     named w times) and at a list with ids kb and -1 among its first cnt
+     items: bit for bit over the in-range ids (compared as int32 bits),
+     blocks no item names exactly 0; one call under `torch.profiler` is the
+     kernel's two device events (count and streaming pass, no fill; their
+     device times printed); the
+     plain version timed, each list's bound printed (this phase runs right
+     after phase 3), then `init_scene`'s KNN scale init: the exact chunked
+     KNN on the card against the CPU at 8192 points (rel <= 1e-6) and the
+     default call at 100k points, timed;
+  8. 100k gradient parity (`tools/grad_parity.py`, rows sigma3 and
      gtnoise, the three probe cameras): forward histogram rel_l2 < 2.5e-3
      and every group's cosine >= 0.999; rel_l2 and max_norm printed;
- 10. last, so that no other phase runs after a CUDA graph capture:
-     `tools/schedbench.py` at the three specs of phase 3. K1 and K2 timed
-     by replaying a CUDA graph of 50 captured calls (the kernels line's ms;
-     events around back-to-back calls time the host's launches, printed
-     beside, before any capture and right after the kernel's own, with the
-     host's cost a call),
+  9. the tools at JAX's sizes, counters reset before and read after: sort,
+     scatter-add, the rsort step's components (t_chunk 32, gates 4 and 32)
+     and cullbench; every time finite, no cull overflowed, K1-K4 launched;
+ 10. after every phase that times without a CUDA graph, so that no capture
+     precedes them: `tools/schedbench.py` at the three specs of phase 3. K1
+     and K2 timed by replaying a CUDA graph of 50 captured calls (the
+     kernels line's ms; events around back-to-back calls time the host's
+     launches, printed beside, before any capture and right after the
+     kernel's own, with the host's cost a call),
      the card's launch floor (a one-element fill_), `rsort_schedule` and
      K2 at `tune_rsort_spec`'s probe capacity the same way, and one
      `rsort_schedule` call's device events (after the gather: the
-     full_perm cast, K1 and K2, gated).
+     full_perm cast, K1 and K2, gated);
+ 11. the K9 microbenchmark (`bench_worklist_kernel`), counters reset before
+     and read after: each list chained between CUDA events and replayed
+     from a CUDA graph of 50 calls (the kernels line's ms at s 4096, w
+     1024), the `index_add_` yardstick the same two ways (the kernels
+     line's library_ms from its graph), each beside phase 7's bound and
+     its share; every time finite, K9 launched.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -130,7 +139,7 @@ PATH_KERNELS = {
     "pallas_analytic": ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd"),
     "pallas": ("field_fwd", "field_bwd"),
 }
-TOOLS_KERNELS = ("worklist_add", "cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
+TOOLS_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
 K9_ROW_SHAPE = (4096, 1024)  # (s, w) of the K9 row in the kernels line
 SCAN_M = SCAN_N = 256
 # Peak rates of one H100 SXM at its 700 W limit: HBM3 bytes/s and non-tensor
@@ -864,47 +873,78 @@ def main() -> int:
 
     spec8 = rsort_kernels_default_spec()
 
-    k9_bounds = {}  # (s, w) -> bound of the tools' K9 run at cnt = w
+    k9_bounds = {}  # (s, w, one block) -> bound of the tools' K9 lists at cnt = w
 
-    @phase("K9 worklist_add vs plain (microbench shapes)")
+    @phase("K9 worklist_add vs plain (microbench shapes, skewed and out-of-range lists)")
     def worklist_vs_plain():
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
         from nlos_gaussian_renderer_tpu_torch.tools import microbench as mb
 
         # The seed and draw order of `bench_worklist_kernel`, so the first
-        # seven lists are the ones the tools phase times.
+        # seven lists are the ones the tools phase times; then a list with
+        # cnt < w, the tools' skewed list (one block named w times) and a
+        # list with ids kb and -1 among its first cnt items.
         rng = np.random.default_rng(0)
         kb = mb.WORKLIST_KB
-        cases = [(s, w, w) for s, _, w in mb.WORKLIST_SHAPES] + [(1024, 2048, 700)]
+        cases = ([(s, w, w, "random") for s, _, w in mb.WORKLIST_SHAPES]
+                 + [(1024, 2048, 700, "random")]
+                 + [(s, w, w, "one block") for s, w in mb.WORKLIST_SKEWED]
+                 + [(1024, 2048, 2048, "out of range")])
         err = 0.0
-        for s, w, n in cases:
+        for s, w, n, kind in cases:
             x = torch.as_tensor(rng.standard_normal((kb, s, 8)).astype(np.float32), device=dev)
-            fb = torch.as_tensor(rng.integers(0, kb, w).astype(np.int32), device=dev)
+            ids = np.full(w, kb // 3) if kind == "one block" else rng.integers(0, kb, w)
+            if kind == "out of range":
+                ids[[5, 77, 1500]] = [kb, -1, kb + 4096]
+            fb = torch.as_tensor(ids.astype(np.int32), device=dev)
             cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+            live = fb[:n][(fb[:n] >= 0) & (fb[:n] < kb)]
             k9 = lambda: mb.worklist_add(fb, cnt, x)
-            p9 = lambda: mb._worklist_add_plain(fb, cnt, x)
+            p9 = lambda: mb._worklist_add_plain(
+                live, torch.tensor([live.numel()], dtype=torch.int32, device=dev), x)
             o, r = k9(), p9()
             seen = torch.zeros(kb, dtype=torch.bool, device=dev)
-            seen[fb[:n].long()] = True
-            check(torch.equal(o, r) and bool((o[~seen] == 0).all()),
-                  f"K9 s={s} w={w} cnt={n}: == plain bit for bit, unvisited blocks 0")
+            seen[live.long()] = True
+            check(torch.equal(o.view(torch.int32), r.view(torch.int32))
+                  and not o[~seen].view(torch.int32).any(),
+                  f"K9 s={s} w={w} cnt={n} ({kind}): == plain over the in-range ids bit "
+                  f"for bit, unvisited blocks 0")
             err = max(err, float((o - r).abs().max()))
             row_bytes = s * 8 * 4
             distinct = int(seen.sum())
             # Each distinct x row read once, all of o written once, the
             # list's first cnt ids and cnt read; a multiply and an add an
             # element of each item.
-            b = bound(f"worklist_add s={s} w={w} cnt={n}",
+            b = bound(f"worklist_add s={s} w={w} cnt={n} ({kind})",
                       f"{n} items of {s * 8} floats, {distinct} distinct blocks",
                       distinct * row_bytes + kb * row_bytes + 4 * n + 4,
                       2 * n * s * 8, 0)
             pms = cuda_time(p9, 2)
-            log(f"K9 s={s} w={w} cnt={n}: plain {pms:.3f} ms, bound {b[0]:.4f} ms ({b[2]}), "
-                f"on {card}")
-            if n == w:
-                k9_bounds[s, w] = b
-            if (s, w) == K9_ROW_SHAPE:
+            log(f"K9 s={s} w={w} cnt={n} ({kind}): plain {pms:.3f} ms, bound {b[0]:.4f} ms "
+                f"({b[2]}), on {card}")
+            if n == w and kind != "out of range":
+                k9_bounds[s, w, kind == "one block"] = b
+            if (s, w, kind) == (*K9_ROW_SHAPE, "random"):
                 kernel_rows["worklist_add"] = dict(plain_ms=pms, bound=b)
-        # Its kernel and `index_add_` times come from the tools phase.
+                row_args = (fb, cnt, x)
+        # One call is the kernel's two launches on the card, nothing else.
+        mb.worklist_add(*row_args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mb.worklist_add(*row_args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        names = [e.name for e in events]
+        check(len(names) == 2 and any("count_blocks" in m for m in names)
+              and any("stream_blocks" in m for m in names),
+              f"one worklist_add call: the count and streaming passes, no fill ({names})")
+        log("K9 s={} w={} under the profiler: ".format(*K9_ROW_SHAPE) + ", ".join(
+            f"{'count' if 'count_blocks' in e.name else 'streaming'} pass "
+            f"{e.time_range.elapsed_us() / 1e3:.4f} ms"
+            for e in events) + f", on {card}")
+        # Its kernel and `index_add_` times come from the K9 microbenchmark phase.
         kernel_rows["worklist_add"]["max_abs_err"] = err
         return True
 
@@ -1096,38 +1136,6 @@ def main() -> int:
         for backend in PATH_KERNELS
     }
 
-    @phase("tools at JAX's sizes (microbench, rsort components, cullbench)")
-    def tools():
-        from nlos_gaussian_renderer_tpu_torch.tools import cullbench
-        from nlos_gaussian_renderer_tpu_torch.tools import microbench as mb
-
-        cuda_build.reset_launch_counts()
-        timed = mb.bench_sort() + mb.bench_scatter_add()
-        wl = mb.bench_worklist_kernel()
-        rs = mb.bench_rsort_step_components()
-        cull_times, cull_overflows = cullbench.run()
-        torch.cuda.synchronize()
-        counts = cuda_build.launch_counts()
-        for r in wl:
-            b = k9_bounds[r["s"], r["w"]]
-            log(f"K9 s={r['s']} w={r['w']}: kernel {r['ms']:.4f} ms ({r['us_per_item']:.4f} "
-                f"us/item), index_add_ {r['library_ms']:.4f} ms, bound {b[0]:.4f} ms "
-                f"({b[2]}), on {card}")
-            if (r["s"], r["w"]) == K9_ROW_SHAPE:
-                kernel_rows["worklist_add"].update(ms=r["ms"], library_ms=r["library_ms"])
-        nums = ([r["ms"] for r in timed + wl] + [r["library_ms"] for r in wl]
-                + [r[k] for r in rs for k in ("cull_ms", "cull_fwd_ms", "cull_fwd_bwd_ms")]
-                + list(cull_times.values()))
-        check(all(np.isfinite(v) and v > 0 for v in nums),
-              f"{len(nums)} tool times finite and positive")
-        check(not any(r["overflowed"] for r in rs) and cull_overflows == 0,
-              "no cull of the tools overflowed")
-        check(all(counts[k] > 0 for k in TOOLS_KERNELS), f"tools launch counts {counts}")
-        log(f"tools on {card}")
-        return counts
-
-    tools_counts = tools()
-
     @phase("100k gradient parity (grad_parity sigma3, gtnoise)")
     def grad_parity_100k():
         from nlos_gaussian_renderer_tpu_torch.tools import grad_parity as gp
@@ -1152,9 +1160,33 @@ def main() -> int:
 
     grad_parity_100k()
 
+    @phase("tools at JAX's sizes (microbench, rsort components, cullbench)")
+    def tools():
+        from nlos_gaussian_renderer_tpu_torch.tools import cullbench
+        from nlos_gaussian_renderer_tpu_torch.tools import microbench as mb
+
+        cuda_build.reset_launch_counts()
+        timed = mb.bench_sort() + mb.bench_scatter_add()
+        rs = mb.bench_rsort_step_components()
+        cull_times, cull_overflows = cullbench.run()
+        torch.cuda.synchronize()
+        counts = cuda_build.launch_counts()
+        nums = ([r["ms"] for r in timed]
+                + [r[k] for r in rs for k in ("cull_ms", "cull_fwd_ms", "cull_fwd_bwd_ms")]
+                + list(cull_times.values()))
+        check(all(np.isfinite(v) and v > 0 for v in nums),
+              f"{len(nums)} tool times finite and positive")
+        check(not any(r["overflowed"] for r in rs) and cull_overflows == 0,
+              "no cull of the tools overflowed")
+        check(all(counts[k] > 0 for k in TOOLS_KERNELS), f"tools launch counts {counts}")
+        log(f"tools on {card}")
+        return counts
+
+    tools_counts = tools()
+
     @phase("rsort schedule: launch floor, K1/K2 from CUDA graphs, device events")
     def schedule_costs():
-        # Last, so that no phase before it runs after a CUDA graph capture.
+        # After every phase that times without a graph: no capture precedes them.
         specs = {200: spec, 32: spec32, 8: spec8}
         if None in specs.values():
             raise RuntimeError("a spec's phase failed")
@@ -1185,13 +1217,41 @@ def main() -> int:
         return res
 
     schedule_costs()
-    if (failures or None in trained.values() or tools_counts is None
+
+    @phase("K9 microbenchmark (tools/microbench.py: chained and from CUDA graphs)")
+    def worklist_times():
+        from nlos_gaussian_renderer_tpu_torch.tools import microbench as mb
+
+        cuda_build.reset_launch_counts()
+        wl = mb.bench_worklist_kernel()
+        torch.cuda.synchronize()
+        counts = cuda_build.launch_counts()
+        for r in wl:
+            b = k9_bounds[r["s"], r["w"], r["one_block"]]
+            log(f"K9 s={r['s']} w={r['w']}{' (one block)' if r['one_block'] else ''}: "
+                f"kernel {r['ms']:.4f} ms chained ({r['us_per_item']:.4f} us/item), "
+                f"{r['graph_ms']:.4f} ms from a CUDA graph; index_add_ {r['library_ms']:.4f} "
+                f"ms chained, {r['library_graph_ms']:.4f} ms from a graph; bound {b[0]:.4f} "
+                f"ms ({b[2]}): {b[0] / r['ms']:.1%} of the chained time, "
+                f"{b[0] / r['graph_ms']:.1%} of the graph's, on {card}")
+            if (r["s"], r["w"], r["one_block"]) == (*K9_ROW_SHAPE, False):
+                kernel_rows["worklist_add"].update(ms=r["graph_ms"],
+                                                   library_ms=r["library_graph_ms"])
+        nums = [r[k] for r in wl
+                for k in ("ms", "graph_ms", "library_ms", "library_graph_ms")]
+        check(all(np.isfinite(v) and v > 0 for v in nums),
+              f"{len(nums)} K9 times finite and positive")
+        check(counts["worklist_add"] > 0, f"K9 launch count {counts['worklist_add']}")
+        return counts
+
+    k9_counts = worklist_times()
+    if (failures or None in trained.values() or tools_counts is None or k9_counts is None
             or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
     on_steps = {k for ks in PATH_KERNELS.values() for k in ks}
     launches = {k: sum(c[k] for c, _, _ in trained.values()) if k in on_steps
-                else tools_counts[k] for k in kernel_rows}
+                else k9_counts[k] for k in kernel_rows}
     # A kernel on no train step (K9) launches 0 times a step.
     per_step = dict.fromkeys(kernel_rows, 0)
     for backend, (counts, _, calls) in trained.items():

@@ -43,7 +43,7 @@ SIGNATURES = {
     "analytic_bwd": [_P] * 11 + [_I] * 15 + [_P],
     "field_fwd": [_P] * 10 + [_I] * 9 + [_P],
     "field_bwd": [_P] * 11 + [_I] * 8 + [_P],
-    "worklist_add": [_P] * 4 + [_I] * 2 + [_P],
+    "worklist_add": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -5,16 +5,20 @@ Port of `tools/microbench.py`. Measures, on the device:
      several row counts: the cost model of the cull's sort.
   2. Row scatter-add (`index_add_` with duplicated sources) at several row
      counts: the backward combine of a duplicated layout.
-  3. The work-list kernel K9 (`worklist_add`, `csrc/worklist_add.cu`; one
-     CTA per work item, one (s, 8) block in and out) at several list
-     lengths: the fixed cost of one work item. Beside it, the one
+  3. The work-list kernel K9 (`worklist_add`, `csrc/worklist_add.cu`: a
+     count pass over the list, then one streaming pass that writes every
+     block of o once) at several list lengths and at a list that names one
+     block w times: the function's cost at the list's shapes, chained
+     through CUDA events and replayed from a CUDA graph (the card's launch
+     floor is `tools/schedbench.py`'s `launch_floor_ms`). Beside it, the one
      `index_add_` call that computes the same function (a yardstick only).
   4. `--rsort`: the `pallas_rsort` step of the 100k bench scene taken apart
      into cull, cull + forward and cull + forward + backward.
 
 Every function takes `device` ("cuda" by default, which raises without a
 card; "cpu" runs the kernels' plain versions) and returns its rows as well
-as printing them. Each timed call consumes the last one's result (chained).
+as printing them. Each timed call consumes the last one's result (chained),
+but for K9's graph replay.
 
     python -m nlos_gaussian_renderer_tpu_torch.tools.microbench [--rsort] [--cpu]
 """
@@ -55,6 +59,8 @@ WORKLIST_SHAPES = (
     (256, 256, 2048), (256, 256, 4096),
 )
 WORKLIST_KB = 512
+# (s, w) of the skewed list: block kb // 3 named by all w items.
+WORKLIST_SKEWED = ((4096, 1024),)
 
 
 def timeit_chained(fn, state, iters=20):
@@ -130,12 +136,14 @@ def worklist_add(fb, cnt, x):
     """K9: (kb, s, 8) f32 `o`, zero, then o[fb[i]] += 2 * x[fb[i]] for every
     i < cnt[0] (and i < w), in list order.
 
-    fb (w,) int32 block ids in [0, kb) (the caller's duty: only the plain
-    version checks them); cnt (1,) int32 stays on the device (no host sync);
-    x (kb, s, 8) f32. Repeated ids accumulate; blocks no item names stay 0.
-    CUDA tensors launch the kernel, whose result equals the plain version's
-    bit for bit (all addends of one element are equal); CPU tensors run the
-    plain version."""
+    fb (w,) int32 block ids; cnt (1,) int32 stays on the device (no host
+    sync); x (kb, s, 8) f32, 16-byte aligned. Repeated ids accumulate;
+    blocks no item names are 0. CUDA tensors launch the kernel: a count pass
+    over the list, then one streaming pass that writes every block of `o`
+    once (no fill, no float atomics). It skips ids outside [0, kb) and
+    equals the plain version over the in-range ids bit for bit (every
+    addend of an element is the same value, added from +0). CPU tensors run
+    the plain version, which raises on such ids."""
     if on_cpu(fb, cnt, x):
         return _worklist_add_plain(fb, cnt, x)
     if x.dim() != 3 or x.shape[2] != 8:
@@ -147,9 +155,10 @@ def worklist_add(fb, cnt, x):
     check_tensor(x, "x", torch.float32)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    o = torch.zeros_like(x)
-    KERNELS["worklist_add"].launch(ptr(fb), ptr(cnt), ptr(x), ptr(o), fb.shape[0],
-                                   x.shape[1] * x.shape[2])
+    o = torch.empty_like(x)
+    counts = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    KERNELS["worklist_add"].launch(ptr(fb), ptr(cnt), ptr(x), ptr(o), ptr(counts),
+                                   fb.shape[0], x.shape[0], x.shape[1] * x.shape[2])
     return o
 
 
@@ -176,31 +185,71 @@ def _worklist_add_plain(fb, cnt, x):
     return o
 
 
+def _worklist_add_counted(fb, cnt, x):
+    """The kernel's algorithm in torch: count each in-range id of the first
+    min(max(cnt, 0), w) items (ids outside [0, kb) are skipped), then give
+    each block its 2 * x added count times from +0. Equal to
+    `_worklist_add_plain` bit for bit over the in-range ids."""
+    n = max(min(int(cnt.reshape(-1)[0]), fb.shape[0]), 0)
+    kb = x.shape[0]
+    ids = fb[:n].long()
+    counts = torch.bincount(ids[(ids >= 0) & (ids < kb)], minlength=kb)
+    o = torch.zeros_like(x)
+    for b in torch.nonzero(counts).flatten().tolist():
+        v = 2.0 * x[b]
+        acc = torch.zeros_like(v)
+        for _ in range(int(counts[b])):
+            acc += v
+        o[b] = acc
+    return o
+
+
 def _index_add_worklist(fb, x):
     """K9's function in one PyTorch call at cnt = w: the yardstick the
     tools time beside the kernel (no computation of the port uses it)."""
     return torch.zeros_like(x).index_add_(0, fb, x.index_select(0, fb), alpha=2.0)
 
 
-def bench_worklist_kernel(shapes=WORKLIST_SHAPES, kb=WORKLIST_KB, device="cuda",
-                          iters=20):
-    """K9 over x (kb, s, 8) f32 with a random list of w block ids at cnt = w,
-    chained as JAX chains it (the output becomes the next call's x); beside
-    it the `index_add_` yardstick. Returns ms and us per item of both."""
+def bench_worklist_kernel(shapes=WORKLIST_SHAPES, kb=WORKLIST_KB, skewed=WORKLIST_SKEWED,
+                          device="cuda", iters=20):
+    """K9 over x (kb, s, 8) f32 at cnt = w: a random list of w block ids at
+    each of `shapes` ((s, k, w), k unused as in JAX's tool), then a list
+    that names one block w times at each of `skewed` ((s, w)).
+
+    What is timed is the function's cost at the list's shapes, both launches
+    in: `iters` calls chained as JAX chains them (the output becomes the
+    next call's x) between CUDA events, and on the card also 50 calls of
+    the same inputs replayed from one CUDA graph (`schedbench.graph_ms`:
+    without the host's launch latency; the card's floor for one launch is
+    `schedbench.launch_floor_ms`). Beside them the `index_add_` yardstick,
+    timed both ways. Returns ms and us per item of each (`graph_ms` and
+    `library_graph_ms` None on the CPU)."""
+    from nlos_gaussian_renderer_tpu_torch.tools.schedbench import graph_ms
+
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     rows = []
-    for s, _, w in shapes:
+    lists = [(s, w, False) for s, _, w in shapes] + [(s, w, True) for s, w in skewed]
+    for s, w, one_block in lists:
         x = torch.as_tensor(rng.standard_normal((kb, s, 8)).astype(np.float32), device=dev)
-        fb = torch.as_tensor(rng.integers(0, kb, w).astype(np.int32), device=dev)
+        ids = np.full(w, kb // 3) if one_block else rng.integers(0, kb, w)
+        fb = torch.as_tensor(ids.astype(np.int32), device=dev)
         cnt = torch.tensor([w], dtype=torch.int32, device=dev)
         ms = timeit_chained(lambda st: (st[0], st[1], worklist_add(*st)), (fb, cnt, x), iters)
         lib = timeit_chained(lambda st: (st[0], st[1], _index_add_worklist(st[0], st[2])),
                              (fb, cnt, x), iters)
+        graph = lib_graph = None
+        if dev.type == "cuda":
+            graph = graph_ms(lambda: worklist_add(fb, cnt, x))
+            lib_graph = graph_ms(lambda: _index_add_worklist(fb, x))
         print(f"wlkern s={s:>5} w={w:>5}: {ms:7.3f} ms ({ms * 1000 / w:6.2f} us/item); "
-              f"index_add_ {lib:7.3f} ms ({lib * 1000 / w:6.2f} us/item)")
-        rows.append({"s": s, "w": w, "ms": ms, "us_per_item": ms * 1000 / w,
-                     "library_ms": lib, "library_us_per_item": lib * 1000 / w})
+              f"index_add_ {lib:7.3f} ms ({lib * 1000 / w:6.2f} us/item)"
+              + (f"; graph {graph:7.4f} ms, index_add_ {lib_graph:7.4f} ms"
+                 if graph is not None else "")
+              + ("  [one block]" if one_block else ""))
+        rows.append({"s": s, "w": w, "one_block": one_block, "ms": ms,
+                     "us_per_item": ms * 1000 / w, "graph_ms": graph, "library_ms": lib,
+                     "library_us_per_item": lib * 1000 / w, "library_graph_ms": lib_graph})
     return rows
 
 

@@ -25,8 +25,13 @@ every slot of every output), K1 also at g_tile 8, 48 and 1056 (not whole warps; 
 1024 rows), with the schedule's launches after the gather
 counted by the profiler (the full_perm cast, K1, K2) and too many buckets
 for shared memory refused; K8 rows at
-or past a tile's count exactly zero; K9 (`worklist_add`) bit for bit, as all
-addends of one element are equal, with blocks no item names exactly zero."""
+or past a tile's count exactly zero; K9 (`worklist_add`) bit for bit (int32
+views) against the in-order plain loop over the in-range ids, as all
+addends of one element are equal, with blocks no item names exactly zero,
+after the allocator is poisoned, at -0, subnormal and overflowing values,
+one block named 1024 times, cnt < 0 and > w, s 1, 97 and 300, kb 70,000
+(several count CTAs) and ids kb, -1 and +-2^31 among the first cnt items,
+and one call counted by the profiler (the count and streaming passes)."""
 
 import numpy as np
 import pytest
@@ -536,25 +541,90 @@ def test_render_and_grads_on_card_match_cpu_plain(dev, occ, backend):
         assert rel_l2(gg[n], gc[n]) <= 1e-3, n
 
 
-@pytest.mark.parametrize("case", ["cnt0", "cnt_below_w", "one_block_64_times"])
-def test_worklist_add_equals_plain_bit_for_bit(dev, case):
+def _worklist_case(case, dev):
+    """(fb, cnt, x) of one K9 case: kb 16 blocks of s 32 rows and w 64 items
+    unless the case says otherwise."""
     rng = np.random.default_rng(7)
     kb, s, w = 16, 32, 64
-    x = torch.as_tensor(rng.standard_normal((kb, s, 8)).astype(np.float32), device=dev)
+    if case == "s1":
+        s = 1
+    elif case == "s97":
+        s = 97
+    elif case == "s300_two_chunks":
+        s = 300
+    elif case == "kb70000":
+        kb, s, w = 70_000, 1, 4096
+    elif case == "skewed":
+        s, w = 4096, 1024
+    x = rng.standard_normal((kb, s, 8)).astype(np.float32)
+    fb, n = rng.integers(0, kb, w), w
     if case == "one_block_64_times":
-        fb, n = np.full(w, 5), w
-    else:
-        fb, n = rng.integers(0, kb, w), 0 if case == "cnt0" else 23
-    fb = torch.as_tensor(fb.astype(np.int32), device=dev)
-    cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+        fb = np.full(w, 5)
+    elif case == "skewed":
+        fb = np.full(w, kb // 3)
+    elif case in ("cnt0", "cnt_below_w"):
+        n = 0 if case == "cnt0" else 23
+    elif case == "cnt_negative":
+        n = -5
+    elif case == "cnt_above_w":
+        n = w + 9
+    elif case == "kb70000":
+        fb[:4] = [kb - 1, 8191, 8192, 0]  # the ends of the counters' CTA ranges
+    elif case == "ids_out_of_range":
+        fb[[3, 10, 20, 30]] = [kb, -1, 2**31 - 1, -2**31]
+    elif case == "special_values":
+        pick = rng.integers(0, 4, x.shape)
+        fmax = np.finfo(np.float32).max
+        x = np.where(pick == 0, -0.0, np.where(pick == 1, x * 1e-40, np.where(
+            pick == 2, np.sign(x) * 0.49 * fmax, x))).astype(np.float32)
+        fb = np.append(rng.integers(0, 4, w - 1), 9)  # block 9 once: finite 2x
+    return (torch.as_tensor(fb.astype(np.int32), device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev), torch.as_tensor(x, device=dev))
+
+
+@pytest.mark.parametrize("case", [
+    "cnt0", "cnt_below_w", "one_block_64_times", "cnt_negative", "cnt_above_w",
+    "skewed", "special_values", "s1", "s97", "s300_two_chunks", "kb70000",
+    "ids_out_of_range"])
+def test_worklist_add_equals_plain_bit_for_bit(dev, case):
+    """K9 against the in-order plain loop over the in-range ids, compared as
+    bits, with the allocator poisoned first so that every element of o and
+    of the counts must be written by the kernels; one launch a call."""
+    fb, cnt, x = _worklist_case(case, dev)
+    kb = x.shape[0]
+    n = max(min(int(cnt[0]), fb.shape[0]), 0)
+    ids = fb[:n]
+    ids = ids[(ids >= 0) & (ids < kb)]
+    ref = mb._worklist_add_plain(ids, torch.tensor([ids.numel()], dtype=torch.int32,
+                                                   device=dev), x)
     before = cuda_build.launch_counts()["worklist_add"]
+    _poison_allocator(dev, (x, torch.empty(kb, dtype=torch.int32, device=dev)))
     out = mb.worklist_add(fb, cnt, x)
-    ref = mb._worklist_add_plain(fb, cnt, x)
     assert cuda_build.launch_counts()["worklist_add"] == before + 1
-    assert torch.equal(out, ref)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     seen = torch.zeros(kb, dtype=torch.bool, device=dev)
-    seen[fb[:n].long()] = True
-    assert (out[~seen] == 0).all() and (n == 0 or (out[seen] != 0).any())
+    seen[ids.long()] = True
+    assert not out[~seen].view(torch.int32).any() and (n == 0 or (out[seen] != 0).any())
+    if case == "special_values":
+        assert torch.isinf(out).any() and ((out != 0) & (out.abs() < 1.2e-38)).any()
+
+
+def test_worklist_add_is_two_kernels_and_no_fill(dev):
+    """One `worklist_add` call is the count pass and the streaming pass on
+    the card: two device events, no fill, memset or copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fb, cnt, x = _worklist_case("cnt_below_w", dev)
+    mb.worklist_add(fb, cnt, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mb.worklist_add(fb, cnt, x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert sum("count_blocks" in n for n in names) == 1
+    assert sum("stream_blocks" in n for n in names) == 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -101,6 +101,72 @@ def test_plain_equals_numpy_on_unsorted_lists(seed, cnt):
     np.testing.assert_array_equal(plain(fb, np.array([cnt], np.int32), x), ref)
 
 
+FLT_MAX = float(np.finfo(np.float32).max)
+COUNTED_CASES = ["cnt -1", "cnt 0", "cnt 23", "cnt w", "cnt w+5", "one block w times",
+                 "negative zero", "subnormal", "overflow", "mixed"]
+
+
+def _counted_case(case):
+    """(fb, cnt, x) of one case: w = 40 items over kb = KB blocks of S rows."""
+    rng = np.random.default_rng(COUNTED_CASES.index(case))
+    w = 40
+    x = rng.standard_normal((KB, S, 8)).astype(np.float32)
+    fb = rng.integers(0, KB, w)
+    cnt = w
+    if case.startswith("cnt "):
+        cnt = {"-1": -1, "0": 0, "23": 23, "w": w, "w+5": w + 5}[case[4:]]
+    elif case == "one block w times":
+        fb = np.full(w, 5)
+    elif case == "negative zero":
+        x[rng.random(x.shape) < 0.5] = -0.0
+    elif case == "subnormal":
+        x = (rng.standard_normal(x.shape) * 1e-40).astype(np.float32)
+    elif case == "overflow":
+        x = (np.sign(x) * rng.uniform(0.45, 0.5, x.shape) * FLT_MAX).astype(np.float32)
+        fb = np.append(rng.integers(0, KB - 1, w - 1), KB - 1)  # block KB - 1 once
+    elif case == "mixed":
+        pick = rng.integers(0, 4, x.shape)
+        x = np.where(pick == 0, -0.0, np.where(pick == 1, x * 1e-40,
+                     np.where(pick == 2, x * 0.2 * FLT_MAX, x))).astype(np.float32)
+        fb = rng.integers(0, 3, w)
+    return (torch.as_tensor(fb.astype(np.int32)), torch.tensor([cnt], dtype=torch.int32),
+            torch.as_tensor(x))
+
+
+@pytest.mark.parametrize("case", COUNTED_CASES)
+def test_counted_equals_plain_bit_for_bit(case):
+    """The kernel's algorithm (count the ids, then add each block's 2x its
+    count times from +0) against the in-order loop, compared as bits: any
+    order of equal addends from +0 gives the same sums, -0 and subnormal
+    values and overflow to inf included."""
+    fb, cnt, x = _counted_case(case)
+    got, ref = mb._worklist_add_counted(fb, cnt, x), mb._worklist_add_plain(fb, cnt, x)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    bits = ref.view(torch.int32)
+    if case == "negative zero":  # 2 * -0 added from +0 gives +0
+        assert (x.view(torch.int32) == -2**31).any() and not (bits == -2**31).any()
+    elif case == "subnormal":
+        assert ((ref != 0) & (ref.abs() < np.finfo(np.float32).tiny)).any()
+    elif case == "overflow":
+        assert torch.isinf(ref).any() and torch.isfinite(ref[ref != 0]).any()
+    elif case in ("cnt -1", "cnt 0"):
+        assert not bits.any()
+
+
+def test_counted_skips_ids_outside_the_blocks_where_plain_raises():
+    """Ids kb and -1 among the first cnt items: the counted form (the
+    kernel's) skips them and equals the plain loop over the in-range ids;
+    the plain loop raises."""
+    fb, cnt, x = _counted_case("cnt w")
+    fb[3], fb[17] = KB, -1
+    with pytest.raises(ValueError, match="outside"):
+        mb._worklist_add_plain(fb, cnt, x)
+    keep = fb[(fb >= 0) & (fb < KB)]
+    ref = mb._worklist_add_plain(keep, torch.tensor([keep.numel()], dtype=torch.int32), x)
+    got = mb._worklist_add_counted(fb, cnt, x)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
 def test_wrapper_checks_its_arguments():
     x = torch.zeros((KB, S, 8))
     cnt = torch.tensor([4], dtype=torch.int32)
@@ -140,9 +206,12 @@ def test_bench_sort_and_scatter_add_on_cpu():
 
 
 def test_bench_worklist_kernel_on_cpu():
-    rows = mb.bench_worklist_kernel(((16, 0, 32), (8, 0, 64)), kb=8, device="cpu", iters=2)
+    rows = mb.bench_worklist_kernel(((16, 0, 32), (8, 0, 64)), kb=8, skewed=((8, 16),),
+                                    device="cpu", iters=2)
     _finite(rows, ["ms", "us_per_item", "library_ms"])
-    assert [(r["s"], r["w"]) for r in rows] == [(16, 32), (8, 64)]
+    assert [(r["s"], r["w"], r["one_block"]) for r in rows] == [
+        (16, 32, False), (8, 64, False), (8, 16, True)]
+    assert all(r["graph_ms"] is None and r["library_graph_ms"] is None for r in rows)
 
 
 def test_bench_rsort_step_components_on_cpu():
