@@ -57,10 +57,11 @@ Phases:
   6. for each backend: reset the launch counters, take 3 warm-up and 25
      timed train steps at 100k (finite losses), time them, read the
      counters, and require each of its kernels to have run. The steps run
-     behind `train.GatedTrainStep`: a step whose lists overflow raises
-     before the update, is re-fitted (grow only) on the probes plus that
-     step's camera and replayed from the unchanged state (a replay that
-     overflows again fails). After the counters are read, 10 more
+     behind `fit`'s overflow gate (`train.OverflowGate.run_gated`): a step
+     whose lists overflowed is restored from its snapshot, re-fitted (grow
+     only) on the probes plus that step's camera and replayed (a re-fit
+     that grows nothing, or a kept step whose flag is still set, fails the
+     phase). After the counters are read, 10 more
      steps run under `torch.profiler`: device time per step, device events
      per step, the largest kernels, and the busy share (device time over
      the timed ms/step). A profiler that fails is reported, not fatal;
@@ -70,7 +71,7 @@ Phases:
      items: bit for bit over the in-range ids (compared as int32 bits),
      blocks no item names exactly 0; one call under `torch.profiler` is the
      kernel's two device events (count and streaming pass, no fill; their
-     device times printed); the
+     device times printed), after a spin kernel that alone is left out; the
      plain version timed, each list's bound printed (this phase runs right
      after phase 3), then `init_scene`'s KNN scale init: the exact chunked
      KNN on the card against the CPU at 8192 points (rel <= 1e-6) and the
@@ -96,7 +97,27 @@ Phases:
      from a CUDA graph of 50 calls (the kernels line's ms at s 4096, w
      1024), the `index_add_` yardstick the same two ways (the kernels
      line's library_ms from its graph), each beside phase 7's bound and
-     its share; every time finite, K9 launched.
+     its share; every time finite, K9 launched;
+ 12. `fit`, the training entry point (`tools/fitbench.py`), on the committed
+     Zaragoza artifact (64x64 scan points, 256 bins; a 200-bin window over
+     its signal), 100k Gaussians from `Config(rng=0)`, `pallas_rsort`:
+     300 iterations on the chunked path (chunks of 50, each one step's CUDA
+     graph replayed 50 times under `set_sync_debug_mode("error")`), gated on
+     finite losses, the last logged loss below the first, no overflow left
+     and K1-K4 recorded into the graph; the per-step path on the same
+     data and seed; from one snapshot one chunk from its graph against the
+     same 50 steps eagerly, every parameter and both Adam moments bit for
+     bit or within the spread of two eager runs; the chunk and the eager
+     steps timed between CUDA events, and each under `torch.profiler`,
+     gated on K1-K4's device events a step in the replayed chunk equal to
+     their events a wrapper call in the eager run times the calls recorded
+     into the graph;
+     the overflow replay at 5k (initial w_max 4) equal to the run with
+     fitted caps; `pallas_analytic` and `pallas` through the chunked `fit`
+     (100 iterations, their kernels in the graph). Counters reset before
+     each `fit` and read after it; they count wrapper calls outside a
+     capture (a replay makes none, so the kernels line's `launches` holds
+     no replay). It captures graphs, so it runs last.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -199,14 +220,19 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
 
 
-def probe_scan_points() -> np.ndarray:
-    """The JAX package's capacity probes (`train.probe_scan_points`): the
-    four corners and the middle of the 256x256 scan grid."""
+def scan_grid_probes() -> np.ndarray:
+    """`train.probe_scan_points` of the 256x256 scan grid: its four corners
+    and its middle."""
     from nlos_gaussian_renderer_tpu_torch.data.synthetic import make_scan_grid
+    from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData
+    from nlos_gaussian_renderer_tpu_torch.train import probe_scan_points
 
-    grid = make_scan_grid(SCAN_M, SCAN_N).T
-    m, n = SCAN_M, SCAN_N
-    return grid[sorted({0, n - 1, (m - 1) * n, m * n - 1, (m * n) // 2})]
+    grid = NLOSData(
+        nlos_data=np.zeros((1, SCAN_M, SCAN_N), np.float32), camera_position=np.zeros(3),
+        camera_grid_size=np.ones(2), camera_grid_positions=make_scan_grid(SCAN_M, SCAN_N),
+        camera_grid_points=np.array([SCAN_M, SCAN_N]), volume_position=VOLUME_POSITION,
+        volume_size=VOLUME_SIZE, deltaT=DELTA_T, c=C_LIGHT)
+    return probe_scan_points(grid)
 
 
 def cuda_time(fn, reps):
@@ -470,7 +496,7 @@ def main() -> int:
     )
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
     from nlos_gaussian_renderer_tpu_torch.train import (
-        GatedTrainStep, create_train_state, fit_culling_capacity,
+        OverflowGate, create_train_state, fit_culling_capacity,
     )
 
     dev = torch.device("cuda")
@@ -506,7 +532,7 @@ def main() -> int:
                           backend="pallas_rsort")
     nb = END - START
     base_spec = fr.RSortSpec(t_chunk=-(-nb // 8) * 8, gate_bins=8)
-    probes = probe_scan_points()
+    probes = scan_grid_probes()
 
     scene, _, _ = bench_scene(N_GAUSSIANS, device=dev)
 
@@ -929,15 +955,20 @@ def main() -> int:
             if (s, w, kind) == (*K9_ROW_SHAPE, "random"):
                 kernel_rows["worklist_add"] = dict(plain_ms=pms, bound=b)
                 row_args = (fb, cnt, x)
-        # One call is the kernel's two launches on the card, nothing else.
+        # One call is the kernel's two launches on the card, nothing else. A
+        # spin kernel runs first in the window, and only it is left out: the
+        # profiler has dropped a window's first device event (here the count
+        # pass) on the H100.
         mb.worklist_add(*row_args)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             mb.worklist_add(*row_args)
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        names = [e.name for e in events]
-        check(len(names) == 2 and any("count_blocks" in m for m in names)
+        names = [e.name for e in events if "spin_kernel" not in e.name]
+        check(len(events) - len(names) <= 1 and len(names) == 2 and any("count_blocks" in m for m in names)
               and any("stream_blocks" in m for m in names),
               f"one worklist_add call: the count and streaming passes, no fill ({names})")
         log("K9 s={} w={} under the profiler: ".format(*K9_ROW_SHAPE) + ", ".join(
@@ -1066,31 +1097,38 @@ def main() -> int:
     def train(backend):
         """Reset the launch counters, take WARMUP_STEPS + TRAIN_STEPS steps of
         `backend` at 100k, read the counters; returns (counts, ms/step,
-        step calls). A step that overflows a capacity is re-fitted and
-        replayed from the unchanged state by `GatedTrainStep`."""
+        step calls). Each step runs behind `fit`'s overflow gate
+        (`OverflowGate.run_gated`): a step whose lists overflowed is
+        restored from its snapshot, re-fitted and replayed."""
         sc, _, rng_t = bench_scene(N_GAUSSIANS, device=dev)
         optim = OptimizationParams()
         state = create_train_state(sc, optim)
-        step = GatedTrainStep(settings._replace(backend=backend), optim,
-                              sc.max_sh_degree, probes)
+        step = OverflowGate(settings._replace(backend=backend), optim, sc.max_sh_degree,
+                            probes, box, C_LIGHT, DELTA_T)
         cam_grid = torch.as_tensor(make_scan_grid(SCAN_M, SCAN_N).T, device=dev)
         targets = torch.as_tensor(rng_t.random((1, nb)).astype(np.float32), device=dev)
         n_run = WARMUP_STEPS + TRAIN_STEPS
         idx = rng_t.integers(0, cam_grid.shape[0], size=(n_run + PROFILE_STEPS, 1))
-        losses = []
+        losses, flags = [], []
 
         def run_step(i):
-            return step(state, cam_grid[idx[i]], targets, box, C_LIGHT, DELTA_T, vol)
+            return step.run_gated(False, state, cam_grid[idx[i]], targets, box, C_LIGHT,
+                                  DELTA_T, vol, what=f"{backend} step {i}")
+
+        def gated_step(i):
+            aux = run_step(i)
+            losses.append(aux.loss)
+            flags.append(aux.overflow)
 
         cuda_build.reset_launch_counts()
         for i in range(WARMUP_STEPS):
-            losses.append(run_step(i).loss)
+            gated_step(i)
         torch.cuda.synchronize()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         ev0.record()
         for i in range(WARMUP_STEPS, WARMUP_STEPS + TRAIN_STEPS):
-            losses.append(run_step(i).loss)
+            gated_step(i)
         ev1.record()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
@@ -1104,6 +1142,8 @@ def main() -> int:
         check(all(counts[k] > 0 for k in PATH_KERNELS[backend]),
               f"{backend} launch counts {counts}")
         check(bool(torch.isfinite(sc.means).all()), "parameters finite after training")
+        check(not step.overflow_detected and not bool(torch.stack(flags).any()),
+              f"{backend}: every overflow healed by a re-fit, no kept step overflowed")
         log(f"{backend} train step: {ms:.3f} ms/step (CUDA events), {host_ms:.3f} ms/step "
             f"(host clock), {TRAIN_STEPS} steps after {WARMUP_STEPS} warm-up, {main_calls} "
             f"step calls ({step.retunes} re-tunes), k_max {step.settings.tile_spec.k_max}, "
@@ -1245,13 +1285,111 @@ def main() -> int:
         return counts
 
     k9_counts = worklist_times()
+
+    @phase("fit on the Zaragoza artifact (100k, pallas_rsort, chunked from CUDA graphs)")
+    def fit_phase():
+        from nlos_gaussian_renderer_tpu_torch.tools import fitbench
+
+        out = fitbench.run(dev)
+        lo, hi = out["window"]
+        log(f"Zaragoza artifact {out['data_shape']}, window [{lo}, {hi}), on {card}")
+        ch = out["chunked"]
+        st = ch["chunk_stats"]
+        losses = ch["losses"]
+        check(ch["finite"] and len(losses) == 3,
+              f"chunked fit: {len(losses)} logged losses {losses}, all finite")
+        check(losses[-1] < losses[0],
+              f"chunked fit: last loss {losses[-1]:.6g} below the first {losses[0]:.6g} "
+              f"(margin {losses[0] - losses[-1]:.6g}, {losses[-1] / losses[0]:.4f}x)")
+        check(not ch["overflow_detected"],
+              f"chunked fit: no overflow left ({ch['retunes']} re-tunes)")
+        per = st["launches_per_replay"]
+        check(st["chunk"] == 50 and st["replays"] >= 250
+              and all(per.get(k, 0) >= 1 for k in fitbench.RSORT_KERNELS),
+              f"chunked fit: chunk {st['chunk']}, {st['captures']} captures, {st['replays']} "
+              f"replays, launches a replay {per} (K1-K4 inside the graph), replays under "
+              "set_sync_debug_mode('error')")
+        log(f"chunked fit: last capture {st['capture_s']:.4f} s, instantiate "
+            f"{st['instantiate_s']:.4f} s, "
+            f"ms/step by chunk {[round(v, 4) for v in ch['chunk_ms_per_step']]} (the first "
+            f"holds set-up and capture), overall {ch['ms_per_step']:.4f} ms/step, fit's own "
+            f"{ch['fit_ms_per_step']:.4f}; launch counters {ch['launch_counts']}, on {card}")
+        ps = out["per_step"]
+        check(ps["finite"] and not ps["overflow_detected"],
+              f"per-step fit: losses {ps['losses']}, no overflow left")
+        log(f"per-step fit: {ps['ms_per_step']:.4f} ms/step overall, fit's own "
+            f"{ps['fit_ms_per_step']:.4f}; launch counters {ps['launch_counts']}, on {card}")
+        rp = out["replay"]
+        spread = rp["eager_vs_eager_max_abs"]
+        check(not rp["overflow"] and (rp["replay_equals_eager"]
+                                     or rp["replay_vs_eager_max_abs"] <= spread),
+              f"one chunk of 50 from its graph vs 50 eager steps: max |diff| "
+              f"{rp['replay_vs_eager_max_abs']:.3e} (bit for bit: {rp['replay_equals_eager']}); "
+              f"eager vs eager {spread:.3e} (bit for bit: {rp['eager_equals_eager']}); "
+              f"losses equal: {rp['losses_equal']}; caps {rp['caps']}")
+        pr = rp["profile"]
+        g_ms, e_ms = rp["graph_ms_per_step"], rp["eager_ms_per_step"]
+        log(f"chunk of 50 from one snapshot: graph {[round(v, 4) for v in g_ms]} ms/step, "
+            f"eager {[round(v, 4) for v in e_ms]} ms/step (CUDA events); profiler over one "
+            f"replayed chunk: device {pr['device_ms_per_step']:.4f} ms/step, "
+            f"{pr['events_per_step']:.1f} device events/step, busy share "
+            f"{pr['device_ms_per_step'] / min(g_ms):.3f} of the graph's ms/step; capture "
+            f"{rp['capture_s']:.4f} s, instantiate {rp['instantiate_s']:.4f} s, on {card}")
+        ep = rp["eager_profile"]
+        log(f"the same 50 steps eagerly under the profiler: device {ep['device_ms_per_step']:.4f} "
+            f"ms/step, {ep['events_per_step']:.1f} device events/step, busy share "
+            f"{ep['device_ms_per_step'] / min(e_ms):.3f} of the eager ms/step, on {card}")
+        for k, v in pr["kernels"].items():
+            if v["events_per_step"]:
+                log(f"  {k}: {v['events_per_step']:.1f} device events/step, "
+                    f"{v['ms_per_step']:.4f} ms/step in the graph")
+        # The graph's launches as the profiler sees them: each replay runs a
+        # kernel's device events a wrapper call (counted eagerly on the same
+        # steps) times the calls recorded into the graph.
+        for k in fitbench.RSORT_KERNELS:
+            calls, ev_e = rp["eager_launches"][k], ep["kernels"][k]["events"]
+            per_call = ev_e // calls if calls and ev_e % calls == 0 else None
+            want = None if per_call is None else per_call * rp["launches_per_replay"][k]
+            got = pr["kernels"][k]["events_per_step"]
+            check(want is not None and got == want > 0,
+                  f"{k} in the replayed chunk: {got} device events/step under the profiler, "
+                  f"{per_call} a wrapper call ({ev_e} events over {calls} eager calls) x "
+                  f"{rp['launches_per_replay'][k]} calls recorded into the graph = {want}")
+        for name, cnt, ms in pr["top"]:
+            log(f"  {ms:8.4f} ms/step  {cnt:5.1f}/step  {name}")
+        hl = out["heal"]
+        check(hl["retunes"] >= 1 and not hl["overflow_detected"]
+              and (hl["equal"] or hl["max_abs"] <= spread),
+              f"5k starved caps (w_max 4): {hl['retunes']} re-tunes (with fitted caps: "
+              f"{hl['ref_retunes']}), {hl['captures']} "
+              f"captures, final state vs fitted caps max |diff| {hl['max_abs']:.3e} (bit for "
+              f"bit: {hl['equal']}, losses equal: {hl['losses_equal']})")
+        for backend, kernels in (("pallas_analytic", PATH_KERNELS["pallas_analytic"]),
+                                 ("pallas", PATH_KERNELS["pallas"])):
+            r = out[backend]
+            per = r["chunk_stats"]["launches_per_replay"]
+            check(r["finite"] and not r["overflow_detected"]
+                  and all(per.get(k, 0) >= 1 for k in kernels),
+                  f"{backend} chunked fit: losses {r['losses']}, {r['retunes']} re-tunes, "
+                  f"launches a replay {per}, {r['ms_per_step']:.4f} ms/step overall, "
+                  f"by chunk {[round(v, 4) for v in r['chunk_ms_per_step']]}, on {card}")
+        return out
+
+    fit_out = fit_phase()
     if (failures or None in trained.values() or tools_counts is None or k9_counts is None
-            or len(kernel_rows) != len(cuda_build.KERNELS)):
+            or fit_out is None or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
     on_steps = {k for ks in PATH_KERNELS.values() for k in ks}
-    launches = {k: sum(c[k] for c, _, _ in trained.values()) if k in on_steps
+    fit_runs = [fit_out[r] for r in ("chunked", "per_step", "pallas_analytic", "pallas")]
+    launches = {k: sum(c[k] for c, _, _ in trained.values())
+                + sum(r["launch_counts"][k] for r in fit_runs) if k in on_steps
                 else k9_counts[k] for k in kernel_rows}
+    # Launches a step of the fit path: in the graph of one step.
+    fit_per_step = dict.fromkeys(kernel_rows, 0)
+    for r in (fit_out["chunked"], fit_out["pallas_analytic"], fit_out["pallas"]):
+        for k, n in r["chunk_stats"]["launches_per_replay"].items():
+            fit_per_step[k] = fit_per_step[k] or n
     # A kernel on no train step (K9) launches 0 times a step.
     per_step = dict.fromkeys(kernel_rows, 0)
     for backend, (counts, _, calls) in trained.items():
@@ -1269,7 +1407,8 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=cuda_build.KERNELS[name].source,
              replaces=cuda_build.KERNELS[name].replaces, launches=launches[name],
-             launches_per_step=per_step[name], max_abs_err=row["max_abs_err"],
+             launches_per_step=per_step[name], fit_launches_per_step=fit_per_step[name],
+             max_abs_err=row["max_abs_err"],
              ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
              bound_by=row["bound"][1], library_ms=row.get("library_ms"))
         for name, row in kernel_rows.items()

@@ -19,19 +19,32 @@ Conventions:
     `ops/fused.py`, `ops/fused_rsort.py`, `ops/fused_analytic.py` and
     `tools/microbench.py` launches its kernel for CUDA tensors and runs the
     plain PyTorch version beside it for CPU tensors.
+  - `train.fit(cfg, optim, data, num_iters, ...)` is the training entry
+    point (on the card by default, `device="cpu"` for the plain versions):
+    `data` an `NLOSData` from `load_zaragoza256_data` or
+    `data.synthetic.make_synthetic_dataset`. On the card its chunks of K
+    steps replay a CUDA graph of one step.
   - `tools/` holds the measurement tools (microbench, cullbench,
-    grad_parity): on the card by default, on the CPU when asked.
+    grad_parity, schedbench, fitbench): on the card by default, on the CPU
+    when asked (schedbench and fitbench: the card only).
 """
 
 __version__ = "0.1.0"
 
 from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
+from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData, load_zaragoza256_data
 from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene, init_scene
+from nlos_gaussian_renderer_tpu_torch.train import FitResult, fit, prepare_training
 
 __all__ = [
     "Config",
     "OptimizationParams",
     "GaussianScene",
     "init_scene",
+    "NLOSData",
+    "load_zaragoza256_data",
+    "FitResult",
+    "fit",
+    "prepare_training",
     "__version__",
 ]

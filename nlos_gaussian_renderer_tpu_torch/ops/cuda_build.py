@@ -142,19 +142,28 @@ _SRC = "nlos_gaussian_renderer_tpu_torch/csrc"
 
 class Kernel:
     """A CUDA kernel of the port: where its source lives, which TPU kernel
-    it replaces, and how many times it was launched."""
+    it replaces, and how many times it was launched.
+
+    A call made while the current stream captures a CUDA graph launches
+    nothing: it records the kernel into the graph and counts in `captured`,
+    not in `launches`. The graph's replays make no call, so no counter sees
+    them; the profiler does."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.captured = 0
 
     def launch(self, *args):
         fn = getattr(library(), self.name)
-        stream = torch.cuda.current_stream().cuda_stream
-        self.launches += 1
-        err = fn(*args, ctypes.c_void_p(stream))
+        stream = torch.cuda.current_stream()
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
+        err = fn(*args, ctypes.c_void_p(stream.cuda_stream))
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA error {err} ({error_string(err)})")
 
@@ -182,6 +191,12 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def captured_counts() -> dict:
+    """{kernel: calls recorded into CUDA graphs so far}; the difference
+    across one capture is that graph's launches a replay."""
+    return {name: k.captured for name, k in KERNELS.items()}
 
 
 def ptr(t: torch.Tensor):

@@ -56,13 +56,38 @@ def rho_to_sh(rho):
     return (rho - 0.5) / C0
 
 
+_DEVICE_CONSTANTS: dict = {}
+
+
+def device_constant(name: str, make, device, dtype=None) -> torch.Tensor:
+    """A constant tensor built once per (name, device, dtype) by `make()`
+    (host data) and reused: a step copies nothing from the host, so it can
+    be captured in a CUDA graph. Callers never write to it."""
+    key = (name, torch.device(device), dtype)
+    t = _DEVICE_CONSTANTS.get(key)
+    if t is None:
+        # The one upload of a constant is not a step's copy: a sync check
+        # around its first step (`train.sync_errors`) lets it through.
+        debug = torch.cuda.get_sync_debug_mode() if key[1].type == "cuda" else 0
+        if debug:
+            torch.cuda.set_sync_debug_mode(0)
+        try:
+            t = torch.as_tensor(make(), dtype=dtype, device=device)
+        finally:
+            if debug:
+                torch.cuda.set_sync_debug_mode(debug)
+        _DEVICE_CONSTANTS[key] = t
+    return t
+
+
 def quat_to_rotmat(q, eps: float = 1e-12):
     """Quaternion (w, x, y, z) -> rotation matrix, batched over leading dims.
 
     Normalizes first; a (near-)zero quaternion maps to the identity.
     """
     norm = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
-    identity_q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+    identity_q = device_constant("identity_quat", lambda: [1.0, 0.0, 0.0, 0.0],
+                                 q.device, q.dtype)
     q = torch.where(norm > eps, q / torch.clamp(norm, min=eps), identity_q)
     r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     row0 = torch.stack(
@@ -134,8 +159,12 @@ def eval_sh_dynamic(sh, dirs, active_degree, max_degree: int):
     the full max_degree basis is evaluated and the bands above
     `active_degree` are masked, so annealing never changes shapes."""
     basis = eval_sh_basis(dirs, max_degree)
-    bands = torch.as_tensor(sh_band_indices(max_degree), device=sh.device)
-    mask = (bands <= torch.as_tensor(active_degree, device=sh.device)).to(sh.dtype)
+    bands = device_constant(f"sh_bands_{max_degree}",
+                            lambda: sh_band_indices(max_degree), sh.device)
+    if not isinstance(active_degree, torch.Tensor):
+        active_degree = device_constant(f"sh_degree_{int(active_degree)}",
+                                        lambda: int(active_degree), sh.device)
+    mask = (bands <= active_degree).to(sh.dtype)
     return torch.sum(basis * sh * mask, dim=-1)
 
 

@@ -73,9 +73,10 @@ def shell_grid(
     dtheta = (theta_max - theta_min) / ns
     dphi = (phi_max - phi_min) / ns
 
+    # Fills, not host copies: a captured step copies nothing from the host.
     like = dict(dtype=camera_pos.dtype, device=camera_pos.device)
-    r_lo = torch.tensor(start * c * delta_t, **like)
-    r_hi = torch.tensor(end * c * delta_t, **like)
+    r_lo = torch.full((), start * c * delta_t, **like)
+    r_hi = torch.full((), end * c * delta_t, **like)
     r = _linspace(r_lo, r_hi, num_r)
 
     sin_t = torch.sin(theta)

@@ -1,0 +1,277 @@
+"""`fit`, the training entry point, on the card: chunks replayed from a CUDA
+graph against the per-step path.
+
+    python -m nlos_gaussian_renderer_tpu_torch.tools.fitbench
+
+The data are the committed Zaragoza artifact
+(`examples/data/zaragoza64_bunny.mat`: 64x64 scan points, 256 bins of
+c*dt 7.8 mm), trained in a 200-bin window over its signal (`window`), from
+`Config(rng=0)`'s uniform init: `pallas_rsort`, 32x32 angles, B = 1, SH
+degree 3. `run` measures, in this order:
+
+  1. `fit` on the chunked path (ITERS iterations in chunks of 50, each a
+     CUDA graph of one step replayed 50 times), ms per chunk from callback
+     timestamps (every chunk ends in a host read of its overflow flag), the
+     captures, the wrapper calls recorded into a graph a replay, and the
+     launch counters over the run (wrapper calls outside a capture: a
+     replay makes none);
+  2. `fit` on the per-step path (a callback without a cadence) on the same
+     data and seed;
+  3. from one snapshot of the initial state: one chunk from its graph and
+     the same steps eagerly, twice: every parameter and both Adam moments
+     compared (replay vs eager, eager vs eager); then the chunk and the
+     eager steps timed between CUDA events, and each under
+     `torch.profiler` (device ms a step, device events by kernel; the
+     eager run's wrapper calls beside them, so the graph's events can be
+     held to its recorded calls);
+  4. the overflow replay: `fit` at 5k Gaussians with the initial rsort caps
+     starved (w_max 4, max_groups 8) against the same run with fitted caps;
+  5. `pallas_analytic` and `pallas` through the chunked `fit` (OTHER_ITERS
+     iterations).
+
+The card only (CUDA graphs); it prints one JSON line, the numbers
+`chip_smoke.py` gates and records.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from nlos_gaussian_renderer_tpu_torch import train
+from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
+from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData, load_zaragoza256_data
+from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+from nlos_gaussian_renderer_tpu_torch.tools import resolve_device
+
+ARTIFACT = os.path.join(os.path.dirname(__file__), "..", "..", "examples", "data",
+                        "zaragoza64_bunny.mat")
+WINDOW_BINS = 200
+GAUSSIANS = 100_000
+HEAL_GAUSSIANS = 5_000
+ITERS = 300  # pallas_rsort's chunked and per-step fits
+OTHER_ITERS = 100  # pallas_analytic's and pallas's chunked fits
+RSORT_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
+
+
+def window(data: NLOSData, bins: int = WINDOW_BINS, margin: int = 8):
+    """[start, start + bins) inside the data's bins, starting `margin` bins
+    before its first nonzero bin where there is room."""
+    total = data.nlos_data.shape[0]
+    first = int(np.nonzero(data.nlos_data.reshape(total, -1).sum(axis=1))[0][0])
+    start = min(max(first - margin, 0), total - bins)
+    return start, start + bins
+
+
+def config(data: NLOSData, renderer="pallas_rsort", gaussians=GAUSSIANS, **kw) -> Config:
+    start, end = window(data)
+    return Config(renderer=renderer, init_gaussian_num=gaussians, num_sampling_points=32,
+                  batch_size=1, space_carving_init=False, start=start, end=end, **kw)
+
+
+def timed_fit(cfg, optim, data, iters, dev, per_step=False, log_every=None):
+    """`fit` with the launch counters reset before it; the chunked path
+    (callback_every 50) or the per-step path (a callback without one).
+    Returns (FitResult, seconds, host seconds between callbacks, counts)."""
+    stamps = []
+    kw = dict(num_iters=iters, device=dev, log_every=log_every,
+              callback=lambda it, st, aux: stamps.append(time.perf_counter()))
+    if not per_step:
+        kw["callback_every"] = 50
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train.fit(cfg, optim, data, **kw)
+    torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0, np.diff([t0] + stamps), cuda_build.launch_counts()
+
+
+def _batches(cfg, data, k, dev):
+    """(k, B, 3) cameras and (k, B, num_r) targets of `fit`'s first k steps."""
+    l, m, n = data.shape
+    stream = train.scan_point_stream(np.random.default_rng(cfg.rng), m, n, cfg.batch_size)
+    idx = np.stack([next(stream) for _ in range(k)])
+    cams = data.camera_grid_positions.T[idx]
+    tgt = (data.nlos_data.reshape(l, m * n)[cfg.start:cfg.end].T * np.float32(cfg.gt_times))
+    return (torch.as_tensor(np.ascontiguousarray(cams), device=dev),
+            torch.as_tensor(np.ascontiguousarray(tgt[idx]), device=dev))
+
+
+def _diffs(a, b):
+    """Largest |a - b| over the state's tensors, and whether all are equal."""
+    d = [float((x.detach().double() - y.detach().double()).abs().max()) if x.numel() else 0.0
+         for x, y in zip(a, b)]
+    return max(d), all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def replay_vs_eager(cfg, optim, data, dev, k=50):
+    """One chunk from its graph and k eager steps (twice) from one snapshot;
+    then the same chunk and steps timed, and one chunk profiled."""
+    scene, tx, settings, box = train.prepare_training(cfg, optim, data, device=dev)
+    state = train.create_train_state(scene, tx)
+    consts = (box, data.c, data.deltaT, torch.as_tensor(data.volume_position, device=dev))
+    cams, tgts = _batches(cfg, data, k, dev)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree)
+    step = train.make_train_step(settings, optim, cfg.sh_degree)
+    s0 = train.snapshot_state(state)
+
+    def eager():
+        auxs = [step(state, cams[i], tgts[i], *consts) for i in range(k)]
+        return train.stack_aux(auxs)
+
+    out = {}
+    aux_r = chunk(state, cams, tgts, *consts)
+    replayed = train.snapshot_state(state)
+    train.restore_state(state, s0)
+    aux_e = eager()
+    eager1 = train.snapshot_state(state)
+    train.restore_state(state, s0)
+    eager()
+    eager2 = train.snapshot_state(state)
+    out["replay_vs_eager_max_abs"], out["replay_equals_eager"] = _diffs(replayed, eager1)
+    out["eager_vs_eager_max_abs"], out["eager_equals_eager"] = _diffs(eager1, eager2)
+    out["losses_equal"] = bool(torch.equal(aux_r.loss, aux_e.loss))
+    out["overflow"] = bool(aux_r.overflow) or bool(aux_e.overflow)
+    out["caps"] = dict(w_max=settings.rsort_spec.w_max,
+                       max_groups=settings.rsort_spec.max_groups)
+    out["capture_s"], out["instantiate_s"] = chunk.capture_s, chunk.instantiate_s
+    out["launches_per_replay"] = dict(chunk.launches_per_replay)
+
+    def timed(run, reps=2):
+        ms = []
+        for _ in range(reps):
+            train.restore_state(state, s0)
+            torch.cuda.synchronize(dev)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize(dev)
+            ms.append(e0.elapsed_time(e1) / k)
+        return ms
+
+    out["graph_ms_per_step"] = timed(lambda: chunk(state, cams, tgts, *consts))
+    out["eager_ms_per_step"] = timed(eager)
+    train.restore_state(state, s0)
+    out["profile"] = profile_chunk(lambda: chunk(state, cams, tgts, *consts), k)
+    train.restore_state(state, s0)
+    cuda_build.reset_launch_counts()
+    out["eager_profile"] = profile_chunk(eager, k)
+    out["eager_launches"] = cuda_build.launch_counts()
+    return out
+
+
+def profile_chunk(run, k):
+    """`run` (one replayed chunk, or its steps eagerly) under torch.profiler:
+    device ms a step (kernels, copies and fills, each event's own time),
+    device events a step, and each kernel's device events (in all and a
+    step) and ms a step by name. A spin kernel runs first in the window and
+    is left out of every count: the profiler has dropped a window's first
+    device event on the H100."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    by_name, n_events = {}, 0
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False)
+                or e.name.startswith(("Optimizer.", "ProfilerStep"))
+                or "spin_kernel" in e.name):
+            continue
+        cnt, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (cnt + 1, ms + e.device_time_total / 1e3)
+        n_events += 1
+    per_kernel = {}
+    for name in cuda_build.KERNELS:
+        hits = [(c, ms) for n, (c, ms) in by_name.items() if f"{name}_" in n]
+        per_kernel[name] = dict(events=sum(c for c, _ in hits),
+                                events_per_step=sum(c for c, _ in hits) / k,
+                                ms_per_step=sum(ms for _, ms in hits) / k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(device_ms_per_step=sum(ms for _, ms in by_name.values()) / k,
+                events_per_step=n_events / k, kernels=per_kernel,
+                top=[(n[:80], c / k, ms / k) for n, (c, ms) in top])
+
+
+@contextlib.contextmanager
+def starved_initial_caps():
+    """`prepare_training`'s initial fit hands back w_max 4 and max_groups 8
+    (JAX's tests/test_train.py:415-433), so the first chunk overflows."""
+    orig = train.fit_culling_capacity
+
+    def patched(settings, scene, probes, box, c, dt, grow_only=True, **kw):
+        if not grow_only:
+            tiny = settings.rsort_spec._replace(w_max=4, max_groups=8)
+            return settings._replace(rsort_spec=tiny), True
+        return orig(settings, scene, probes, box, c, dt, grow_only=grow_only, **kw)
+
+    train.fit_culling_capacity = patched
+    try:
+        yield
+    finally:
+        train.fit_culling_capacity = orig
+
+
+def overflow_heal(data, optim, dev, iters=100):
+    """5k Gaussians: fitted caps against starved ones, chunks of 50."""
+    cfg = config(data, gaussians=HEAL_GAUSSIANS)
+    ref = train.fit(cfg, optim, data, num_iters=iters, log_every=50, device=dev)
+    with starved_initial_caps():
+        res = train.fit(cfg, optim, data, num_iters=iters, log_every=50, device=dev)
+    diff, equal = _diffs(train.state_tensors(res.state), train.state_tensors(ref.state))
+    return dict(retunes=res.retunes, overflow_detected=res.overflow_detected,
+                ref_retunes=ref.retunes, max_abs=diff, equal=equal,
+                losses_equal=bool(np.array_equal(res.losses, ref.losses)),
+                captures=res.chunk_stats["captures"])
+
+
+def _fit_summary(res, seconds, chunk_s, counts, iters):
+    return dict(losses=res.losses.tolist(), equal_losses=res.equal_losses.tolist(),
+                ms_per_step=1e3 * seconds / iters, fit_ms_per_step=1e3 / res.iters_per_sec,
+                chunk_ms_per_step=[float(1e3 * s / 50) for s in chunk_s],
+                overflow_detected=res.overflow_detected, retunes=res.retunes,
+                chunk_stats=res.chunk_stats, launch_counts=counts,
+                finite=bool(np.isfinite(res.losses).all()
+                            and torch.isfinite(res.state.scene.means).all()))
+
+
+def run(device="cuda") -> dict:
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("fitbench captures CUDA graphs: it runs on the card only")
+    data = load_zaragoza256_data(os.path.normpath(ARTIFACT))
+    optim = OptimizationParams()
+    cfg = config(data)
+    out = dict(window=list(window(data)), data_shape=list(data.shape), iters=ITERS,
+               device=f"{torch.cuda.get_device_name(dev)} x{torch.cuda.device_count()}")
+    res, sec, chunk_s, counts = timed_fit(cfg, optim, data, ITERS, dev)
+    out["chunked"] = _fit_summary(res, sec, chunk_s, counts, ITERS)
+    res, sec, _, counts = timed_fit(cfg, optim, data, ITERS, dev, per_step=True)
+    out["per_step"] = _fit_summary(res, sec, [], counts, ITERS)
+    out["replay"] = replay_vs_eager(cfg, optim, data, dev)
+    out["heal"] = overflow_heal(data, optim, dev)
+    for backend in ("pallas_analytic", "pallas"):
+        res, sec, chunk_s, counts = timed_fit(config(data, renderer=backend), optim, data,
+                                              OTHER_ITERS, dev)
+        out[backend] = _fit_summary(res, sec, chunk_s, counts, OTHER_ITERS)
+    return out
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = run()
+    print(json.dumps(out, default=str))
+    return out
+
+
+if __name__ == "__main__":
+    main()

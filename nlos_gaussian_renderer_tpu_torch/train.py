@@ -1,90 +1,263 @@
-"""Training: optimizer and train step (PyTorch).
+"""Training: optimizer, train step, K-step chunk and the fit loop (PyTorch).
 
-Port of the step and capacity half of `nlos_gaussian_renderer_tpu/train.py`:
-  - Adam with six parameter groups and per-group learning rates, eps 1e-15;
-    the position group follows the log-linear decay, evaluated at the
-    0-based update count (optax's convention) by a `LambdaLR`;
+Port of `nlos_gaussian_renderer_tpu/train.py`:
+  - Adam over six parameter groups with per-group learning rates, eps
+    1e-15, in optax's formula (`Adam`); the position group follows the
+    log-linear decay, evaluated on the device at the 0-based update count;
   - one (or a batch of) confocal scan point(s) per step, MSE against the
     target histogram, optional alive-masked |opacity| / |scale| regularizers;
-  - SH-degree annealing every `sh_anneal_interval` steps;
-  - `fit_culling_capacity`: the kernel backends' static capacities fitted to
-    a scene on probe scan points (the tile backend doubles `k_max` until no
-    probe saturates; the rsort family re-tunes `w_max` / `max_groups`);
-  - `GatedTrainStep`: the `fit` loop's overflow gate around the step.
+  - SH-degree annealing every `sh_anneal_interval` steps, a device `where`;
+  - `make_train_step`: one step that applies the update and returns its
+    overflow flag on the device. It reads nothing back to the host, so it
+    can be captured in a CUDA graph;
+  - `make_scanned_train_step`: K steps over device-resident cameras and
+    targets. On the card one step is captured into a CUDA graph and
+    replayed K times (JAX's `lax.scan` chunk: no host read inside the
+    chunk); on the CPU the same step runs in a loop;
+  - `fit_culling_capacity`: the kernel backends' static capacities fitted
+    to a scene on probe scan points;
+  - `prepare_training` and `fit`, the training entry point: the scan-point
+    order from `cfg.rng`, the chunk and the log and callback cadences, and
+    the overflow gate (`OverflowGate`): a chunk or log window whose render
+    overflowed a capacity is re-tuned and replayed from its starting state.
 
-PyTorch idiom: the train step updates the scene's parameters and the
-optimizer state in place. A step whose render overflowed a static capacity
-raises `OverflowError` before the update; `GatedTrainStep` then re-fits and
-replays it from the unchanged state (the rest of the JAX `fit` loop is not
-ported yet). SGLD position noise and frozen layouts are not ported.
+PyTorch updates in place where JAX returns a new state, so the state to
+replay from is a device-to-device snapshot (`snapshot_state`): the port's
+counterpart of JAX's `donate=False`. MCMC densification, SGLD noise, frozen
+layouts, `pallas_dsort` and per_gaussian occlusion are not ported: they
+raise `NotImplementedError` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import NamedTuple
+import math
+import time
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
-from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene
+from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
+from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData
+from nlos_gaussian_renderer_tpu_torch.models.scene import (
+    FIELD_NAMES,
+    GaussianScene,
+    init_scene,
+    scene_param_labels,
+)
+from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import tune_rsort_spec
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
+    KERNEL_BACKENDS,
     RSORT_FAMILY,
     RenderSettings,
     check_culling_capacity,
     mse_loss,
     render_transient,
 )
-from nlos_gaussian_renderer_tpu_torch.ops.schedule import expon_lr_schedule
+from nlos_gaussian_renderer_tpu_torch.ops.schedule import expon_lr_schedule_tensor
+
+# The six Adam groups in optax's label order, and each group's scene field.
+GROUPS = ("mu", "f_dc", "f_rest", "opacity", "scaling", "rotation")
+GROUP_FIELD = {label: field for field, label in scene_param_labels().items()
+               if label in GROUPS}
 
 
-def make_optimizer(scene: GaussianScene, optim: OptimizationParams,
-                   spatial_lr_scale: float = 1.0):
-    """(Adam over the six parameter groups, LambdaLR driving the `mu`
-    group's schedule). The alive mask is a buffer: the frozen group."""
-    mu_schedule = expon_lr_schedule(
-        lr_init=optim.position_lr_init * spatial_lr_scale,
-        lr_final=optim.position_lr_final * spatial_lr_scale,
-        lr_delay_mult=optim.position_lr_delay_mult,
-        max_steps=optim.position_lr_max_steps,
-    )
-    mu_base = optim.position_lr_init * spatial_lr_scale
-    groups = [
-        ("mu", scene.means, mu_base),
-        ("f_dc", scene.sh_dc, optim.feature_lr),
-        ("f_rest", scene.sh_rest, optim.feature_lr / 20.0),
-        ("opacity", scene.logit_opacities, optim.opacity_lr),
-        ("scaling", scene.log_scales, optim.scaling_lr),
-        ("rotation", scene.quats, optim.rotation_lr),
-    ]
-    opt = torch.optim.Adam(
-        [{"params": [p], "lr": lr, "name": name} for name, p, lr in groups],
-        betas=(0.9, 0.999),
-        eps=1e-15,
+def not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})"
     )
 
-    def mu_factor(count: int) -> float:
-        return mu_schedule(count) / mu_base if mu_base else 0.0
 
-    lambdas = [mu_factor] + [lambda _count: 1.0] * (len(groups) - 1)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
+def check_ported(cfg: Config, optim: OptimizationParams) -> None:
+    """Raise for an option `fit` does not have yet."""
+    if optim.mcmc_densification_flag:
+        raise not_ported("MCMC densification (mcmc_densification_flag)", 5)
+    if optim.sgld_noise:
+        raise not_ported("SGLD position noise (sgld_noise)", 5)
+    if cfg.frozen_layout:
+        raise not_ported("the frozen layout (frozen_layout)", 8)
+    if cfg.renderer == "pallas_dsort":
+        raise not_ported("backend 'pallas_dsort'", 9)
+    if cfg.occlusion and cfg.occlusion_mode == "per_gaussian":
+        raise not_ported("per_gaussian occlusion", 7)
+
+
+# --- optimizer -------------------------------------------------------------------
+
+
+class Adam:
+    """Six Adam groups matching `GaussianModel.training_setup`, in optax's
+    formula (`optax.adam(lr, b1=0.9, b2=0.999, eps=1e-15)` per group, the
+    alive mask frozen): m = (1 - b1) g + b1 m, v = (1 - b2) g^2 + b2 v,
+    p += -lr * (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps), t the
+    update count. The position group's lr is the log-linear decay at the
+    count before the update, computed on the device. Tensor ops only (the
+    moments with `torch._foreach_*`): one code on the CPU, eagerly on the
+    card and inside a CUDA graph."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-15
+
+    def __init__(self, optim: OptimizationParams, spatial_lr_scale: float = 1.0):
+        self.mu_schedule = expon_lr_schedule_tensor(
+            lr_init=optim.position_lr_init * spatial_lr_scale,
+            lr_final=optim.position_lr_final * spatial_lr_scale,
+            lr_delay_mult=optim.position_lr_delay_mult,
+            max_steps=optim.position_lr_max_steps,
+        )
+        self.lrs = {
+            "f_dc": optim.feature_lr,
+            "f_rest": optim.feature_lr / 20.0,
+            "opacity": optim.opacity_lr,
+            "scaling": optim.scaling_lr,
+            "rotation": optim.rotation_lr,
+        }
+
+    def init(self, scene: GaussianScene) -> "AdamState":
+        params = group_params(scene)
+        return AdamState(
+            tx=self,
+            mu=[torch.zeros_like(p) for p in params],
+            nu=[torch.zeros_like(p) for p in params],
+            count=torch.zeros((), dtype=torch.int32, device=scene.means.device),
+        )
+
+    @torch.no_grad()
+    def update(self, state: "AdamState", params, grads) -> None:
+        """One update of `params` (GROUPS order) and `state`, in place."""
+        b1, b2 = self.b1, self.b2
+        lr_mu = self.mu_schedule(state.count)
+        torch._foreach_mul_(state.mu, b1)
+        torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(state.nu, b2)
+        torch._foreach_add_(state.nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
+                                                         1 - b2))
+        state.count.add_(1)
+        t = state.count.to(params[0].dtype)
+        upd = torch._foreach_div(state.mu, 1 - torch.pow(b1, t))
+        den = torch._foreach_div(state.nu, 1 - torch.pow(b2, t))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(upd, den)
+        upd[0].mul_(-lr_mu.to(params[0].dtype))  # GROUPS[0] is the position group
+        torch._foreach_mul_(upd[1:], [-self.lrs[g] for g in GROUPS[1:]])
+        torch._foreach_add_(params, upd)
+
+
+@dataclasses.dataclass
+class AdamState:
+    tx: Adam
+    mu: list  # first moments, GROUPS order
+    nu: list  # second moments
+    count: torch.Tensor  # () int32 updates so far (optax's count)
+
+
+def make_optimizer(optim: OptimizationParams, spatial_lr_scale: float = 1.0) -> Adam:
+    return Adam(optim, spatial_lr_scale)
+
+
+def group_params(scene: GaussianScene) -> list:
+    return [getattr(scene, GROUP_FIELD[g]) for g in GROUPS]
 
 
 @dataclasses.dataclass
 class TrainState:
     scene: GaussianScene
-    optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
-    step: int = 1  # 1-based like the reference
-    active_sh_degree: int = 0
+    opt_state: AdamState
+    step: torch.Tensor  # () int32, 1-based like the reference
+    active_sh_degree: torch.Tensor  # () int32
 
 
-def create_train_state(scene: GaussianScene, optim: OptimizationParams,
-                       spatial_lr_scale: float = 1.0) -> TrainState:
-    opt, sched = make_optimizer(scene, optim, spatial_lr_scale)
-    return TrainState(scene=scene, optimizer=opt, scheduler=sched)
+def create_train_state(scene: GaussianScene, tx, spatial_lr_scale: float = 1.0
+                       ) -> TrainState:
+    """The state at step 1; `tx` is an `Adam` or the `OptimizationParams`
+    to build one from."""
+    if not isinstance(tx, Adam):
+        tx = make_optimizer(tx, spatial_lr_scale)
+    dev = scene.means.device
+    return TrainState(
+        scene=scene,
+        opt_state=tx.init(scene),
+        step=torch.ones((), dtype=torch.int32, device=dev),
+        active_sh_degree=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def state_tensors(state: TrainState) -> list:
+    """Every tensor a step updates: parameters, moments and counters."""
+    o = state.opt_state
+    return (group_params(state.scene) + o.mu + o.nu
+            + [o.count, state.step, state.active_sh_degree])
+
+
+def snapshot_state(state: TrainState) -> list:
+    """A device-to-device copy of `state_tensors` to replay from."""
+    with torch.no_grad():
+        return [t.detach().clone() for t in state_tensors(state)]
+
+
+def restore_state(state: TrainState, snap: list) -> None:
+    """Copy a snapshot back into the state's own tensors (their storage
+    stays, so a captured graph keeps reading and writing them)."""
+    with torch.no_grad():
+        for t, s in zip(state_tensors(state), snap):
+            t.copy_(s)
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """{'scene': {field: array}, 'mu', 'nu': {group: array}, 'count',
+    'step', 'active_sh_degree': int}: the state as host arrays, in the form
+    `train_state_from_numpy` takes."""
+    o = state.opt_state
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "scene": {n: host(getattr(state.scene, n)) for n in FIELD_NAMES},
+        "mu": {g: host(m) for g, m in zip(GROUPS, o.mu)},
+        "nu": {g: host(v) for g, v in zip(GROUPS, o.nu)},
+        "count": int(o.count),
+        "step": int(state.step),
+        "active_sh_degree": int(state.active_sh_degree),
+    }
+
+
+def train_state_from_numpy(d: dict, tx, device=None) -> TrainState:
+    """A state from host arrays (`train_state_to_numpy`'s form): e.g. a JAX
+    `TrainState` whose scene, optax moments and counts per group were
+    converted with `np.asarray`, so both packages step from one state.
+    'count' is one int or {group: int}; the groups' counts must agree. The
+    arrays keep their float dtype; `tx` as for `create_train_state`."""
+    dev = gmath.default_device(device)
+    if not isinstance(tx, Adam):
+        tx = make_optimizer(tx)
+    scene = GaussianScene(*(torch.as_tensor(np.array(d["scene"][n]), device=dev)
+                            for n in FIELD_NAMES))
+    counts = d["count"]
+    if isinstance(counts, dict):
+        if len(set(int(v) for v in counts.values())) != 1:
+            raise ValueError(f"the groups' update counts differ: {counts}")
+        counts = next(iter(counts.values()))
+
+    def i32(v):
+        return torch.full((), int(v), dtype=torch.int32, device=dev)
+
+    def moments(key):
+        return [torch.as_tensor(np.array(d[key][g]), device=dev) for g in GROUPS]
+
+    return TrainState(
+        scene=scene,
+        opt_state=AdamState(tx=tx, mu=moments("mu"), nu=moments("nu"), count=i32(counts)),
+        step=i32(d["step"]),
+        active_sh_degree=i32(d["active_sh_degree"]),
+    )
+
+
+# --- the step --------------------------------------------------------------------
 
 
 class StepAux(NamedTuple):
@@ -92,7 +265,8 @@ class StepAux(NamedTuple):
     equal_loss: torch.Tensor
     pred_hist: torch.Tensor  # (B, num_r)
     target_hist: torch.Tensor
-    # True when a kernel backend's capacity saturated during this step's render.
+    # True when a kernel backend's capacity saturated during this step's
+    # render (a device bool): contributions were dropped and `fit` replays.
     overflow: torch.Tensor
 
 
@@ -135,38 +309,239 @@ def batched_loss_fn(scene: GaussianScene, cams, targets, box_points, c,
 def make_train_step(settings: RenderSettings, optim: OptimizationParams,
                     max_sh_degree: int, sh_anneal_interval: int = 1000):
     """step(state, cams (B, 3), targets (B, num_r), box_points, c, delta_t,
-    volume_position) -> StepAux, updating `state` in place."""
+    volume_position) -> StepAux, updating `state` in place.
+
+    The update is always applied; `StepAux.overflow` says on the device
+    whether a capacity saturated, and `fit` replays from a snapshot when it
+    did (JAX's semantics). The step reads no device value on the host."""
     if optim.sgld_noise:
-        raise NotImplementedError("SGLD position noise is not ported")
+        raise not_ported("SGLD position noise (sgld_noise)", 5)
 
     def train_step(state: TrainState, cams, targets, box_points, c, delta_t,
                    volume_position) -> StepAux:
-        state.optimizer.zero_grad(set_to_none=True)
+        params = group_params(state.scene)
         loss, aux = batched_loss_fn(
             state.scene, cams, targets, box_points, c, delta_t,
             volume_position, state.active_sh_degree, settings, optim,
         )
-        loss.backward()
-        if bool(aux.overflow):
-            if settings.backend == "pallas":
-                raise OverflowError(
-                    "pallas: a tile's Gaussian list overflowed "
-                    f"(k_max={settings.tile_spec.k_max}); re-fit it with "
-                    "fit_culling_capacity"
-                )
-            raise OverflowError(
-                f"{settings.backend}: the rsort-family work list overflowed "
-                f"(w_max={settings.rsort_spec.w_max}); re-tune the capacities "
-                "with tune_rsort_spec"
-            )
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        if state.step % sh_anneal_interval == 0 and state.active_sh_degree < max_sh_degree:
-            state.active_sh_degree += 1
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        state.opt_state.tx.update(state.opt_state, params, grads)
+        with torch.no_grad():
+            state.step.add_(1)
+            bump = (state.step % sh_anneal_interval == 0) & (
+                state.active_sh_degree < max_sh_degree)
+            state.active_sh_degree.add_(bump.to(torch.int32))
         return aux
 
     return train_step
+
+
+def stack_aux(auxs) -> StepAux:
+    """StepAux of K steps stacked along a leading K axis, overflow OR-ed."""
+    return StepAux(
+        loss=torch.stack([a.loss for a in auxs]),
+        equal_loss=torch.stack([a.equal_loss for a in auxs]),
+        pred_hist=torch.stack([a.pred_hist for a in auxs]),
+        target_hist=torch.stack([a.target_hist for a in auxs]),
+        overflow=torch.stack([a.overflow for a in auxs]).any(),
+    )
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Inside, an operation that blocks the host on the card raises
+    (`torch.cuda.set_sync_debug_mode("error")`), with its stack."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class ScannedTrainStep:
+    """K train steps per call (`make_scanned_train_step`).
+
+    CPU tensors: the step runs K times in a loop. CUDA tensors: one step is
+    captured into a CUDA graph and replayed K times. The graph reads its
+    step's cameras and targets from static (K, B, ...) buffers at a device
+    counter, writes the losses and histograms at it and ORs the overflow
+    flag, so the host pays one `replay()` a step and reads nothing inside
+    the chunk. The graph is captured once per (K, B, bound state and
+    constants) after one warm-up step on a side stream (its update undone
+    from a snapshot); the settings are fixed, so a re-tune builds a new
+    chunk and captures again. The warm-up step, the capture and the
+    replays run under `sync_errors`: a blocking host read raises, and so
+    does a capture that fails.
+
+    Statistics: `captures`, `replays`, and of the last capture `capture_s`,
+    `instantiate_s` and `launches_per_replay` ({kernel: launches a
+    replay})."""
+
+    def __init__(self, settings: RenderSettings, optim: OptimizationParams,
+                 max_sh_degree: int, sh_anneal_interval: int = 1000):
+        self.settings = settings
+        self._step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval)
+        self._graph = None
+        self._key = None
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = None
+        self.instantiate_s = None
+        self.launches_per_replay = {}
+
+    def __call__(self, state: TrainState, cams_k, targets_k, box_points, c, delta_t,
+                 volume_position) -> StepAux:
+        k = cams_k.shape[0]
+        if cams_k.device.type == "cpu":
+            return stack_aux([
+                self._step(state, cams_k[i], targets_k[i], box_points, c, delta_t,
+                           volume_position)
+                for i in range(k)
+            ])
+        if cams_k.device.type != "cuda":
+            raise ValueError(f"no chunk for device {cams_k.device}")
+        key = (tuple(cams_k.shape), tuple(targets_k.shape), targets_k.dtype, c, delta_t,
+               box_points.data_ptr(), volume_position.data_ptr(),
+               tuple(t.data_ptr() for t in state_tensors(state)))
+        if key != self._key:
+            self._capture(state, cams_k, targets_k, box_points, c, delta_t,
+                          volume_position)
+            self._key = key
+        self._cams.copy_(cams_k)
+        self._targets.copy_(targets_k)
+        self._i.zero_()
+        self._of.zero_()
+        with sync_errors():
+            for _ in range(k):
+                self._graph.replay()
+        self.replays += k
+        return StepAux(loss=self._loss.clone(), equal_loss=self._eq.clone(),
+                       pred_hist=self._pred.clone(), target_hist=targets_k,
+                       overflow=self._of.clone())
+
+    def _body(self, state, box_points, c, delta_t, volume_position):
+        cams = self._cams.index_select(0, self._i)[0]
+        targets = self._targets.index_select(0, self._i)[0]
+        aux = self._step(state, cams, targets, box_points, c, delta_t, volume_position)
+        with torch.no_grad():
+            self._loss.index_copy_(0, self._i, aux.loss.reshape(1))
+            self._eq.index_copy_(0, self._i, aux.equal_loss.reshape(1))
+            self._pred.index_copy_(0, self._i, aux.pred_hist[None])
+            self._of.logical_or_(aux.overflow)
+            self._i.add_(1)
+
+    def _capture(self, state, cams_k, targets_k, box_points, c, delta_t,
+                 volume_position):
+        self._graph = None  # release the last graph's pool first
+        k = cams_k.shape[0]
+        dev = cams_k.device
+        self._cams = cams_k.clone()
+        self._targets = targets_k.clone()
+        self._i = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._of = torch.zeros((), dtype=torch.bool, device=dev)
+        self._loss = torch.zeros(k, dtype=targets_k.dtype, device=dev)
+        self._eq = torch.zeros(k, dtype=targets_k.dtype, device=dev)
+        self._pred = torch.zeros(targets_k.shape, dtype=targets_k.dtype, device=dev)
+        args = (state, box_points, c, delta_t, volume_position)
+        # Warm-up on a side stream (lazy initialisation stays out of the
+        # graph), then undo its update.
+        snap = snapshot_state(state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), sync_errors():
+            self._body(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        restore_state(state, snap)
+        self._i.zero_()
+        self._of.zero_()
+        del snap
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated apart, timed
+        before = cuda_build.captured_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph), sync_errors():
+            self._body(*args)
+        t1 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.capture_s = t1 - t0
+        self.instantiate_s = time.perf_counter() - t1
+        after = cuda_build.captured_counts()
+        self.launches_per_replay = {n: after[n] - before[n] for n in after
+                                    if after[n] != before[n]}
+        self.captures += 1
+        self._graph = graph
+
+
+def make_scanned_train_step(settings: RenderSettings, optim: OptimizationParams,
+                            max_sh_degree: int, sh_anneal_interval: int = 1000,
+                            ref_cam=None, layout_slack: float = 0.0,
+                            densify_seed: Optional[int] = None) -> ScannedTrainStep:
+    """K-step train chunk: step_k(state, cams (K, B, 3), targets (K, B,
+    num_r), box_points, c, delta_t, volume_position) -> StepAux with
+    loss / equal_loss / pred_hist / target_hist stacked along K and the
+    overflow flag OR-reduced on the device (`ScannedTrainStep`). Frozen
+    layouts (`ref_cam`) and in-chunk densification (`densify_seed`) are not
+    ported yet and raise."""
+    if ref_cam is not None:
+        raise not_ported("the frozen layout (ref_cam)", 8)
+    if densify_seed is not None:
+        raise not_ported("in-chunk densification (densify_seed)", 5)
+    return ScannedTrainStep(settings, optim, max_sh_degree, sh_anneal_interval)
+
+
+# --- scan points, capacities -------------------------------------------------------
+
+
+def scan_point_stream(
+    rng: np.random.Generator, m: int, n: int, batch: int
+) -> Iterator[np.ndarray]:
+    """Yield (batch,) flat scan indices, reshuffling each epoch."""
+    all_idx = np.arange(m * n)
+    buf: list[int] = []
+    while True:
+        rng.shuffle(all_idx)
+        buf.extend(all_idx.tolist())
+        while len(buf) >= batch:
+            out, buf = buf[:batch], buf[batch:]
+            yield np.asarray(out, dtype=np.int32)
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: TrainState
+    losses: np.ndarray
+    equal_losses: np.ndarray
+    iters_per_sec: float
+    # True if any monitored step saturated a culling capacity that could not
+    # be healed by re-tuning (should be False for a healthy run).
+    overflow_detected: bool = False
+    # Number of capacity re-tunes.
+    retunes: int = 0
+    # The chunked path's CUDA graph statistics (`ScannedTrainStep`): chunk,
+    # captures, replays, last capture_s / instantiate_s, launches_per_replay.
+    chunk_stats: Optional[dict] = None
+
+
+def layout_reference(data: NLOSData) -> Tuple[np.ndarray, float]:
+    """(ref_cam, slack) for the frozen-layout cull: the scan-grid centroid
+    and its aperture radius plus a parameter-drift allowance of 2 cm."""
+    grid = np.asarray(data.camera_grid_positions).T.reshape(-1, 3)
+    ref = grid.mean(axis=0).astype(np.float32)
+    slack = float(np.max(np.linalg.norm(grid - ref[None, :], axis=1))) + 0.02
+    return ref, slack
+
+
+def probe_scan_points(data: NLOSData) -> np.ndarray:
+    """Representative scan points for capacity fitting: the four corners and
+    the middle of the scan grid (corners concentrate the population into few
+    angular tiles and drive the worst-case culling capacities)."""
+    _, m, n = data.shape
+    grid = np.asarray(data.camera_grid_positions).T  # (MN, 3)
+    ids = [0, n - 1, (m - 1) * n, m * n - 1, (m * n) // 2]
+    return grid[sorted(set(ids))]
 
 
 def _cap_bucket(v: int) -> int:
@@ -194,9 +569,9 @@ def fit_culling_capacity(settings: RenderSettings, scene, probe_cams, box_points
     the settings unchanged. Frozen layouts (`ref_cam`) and 'pallas_dsort'
     are not ported and raise."""
     if ref_cam is not None:
-        raise NotImplementedError("frozen layouts (ref_cam) are not ported")
+        raise not_ported("the frozen layout (ref_cam)", 8)
     if settings.backend == "pallas_dsort":
-        raise NotImplementedError("backend 'pallas_dsort' is not ported")
+        raise not_ported("backend 'pallas_dsort'", 9)
     dev = scene.means.device
     cams = torch.as_tensor(np.asarray(probe_cams, np.float32), device=dev).reshape(-1, 3)
     if settings.backend in RSORT_FAMILY:
@@ -233,51 +608,324 @@ def fit_culling_capacity(settings: RenderSettings, scene, probe_cams, box_points
     return settings, False
 
 
-class GatedTrainStep:
-    """`make_train_step` behind the JAX `fit` loop's overflow gate (its
-    `retune` / `run_gated`), with the step's signature.
+# --- fit ---------------------------------------------------------------------------
 
-    A step whose render overflowed a static capacity raises before the
-    update; the gate then re-fits the capacities (`fit_culling_capacity`,
-    grow only) on the probe scan points plus that step's cameras, prints
-    the new capacities, rebuilds the step and replays it from the unchanged
-    state. A re-fit that changes nothing, or a replay that overflows again,
-    raises. `settings` holds the current capacities, `retunes` counts the
-    re-fits."""
+
+def prepare_training(
+    cfg: Config,
+    optim: OptimizationParams,
+    data: NLOSData,
+    init_points: Optional[np.ndarray] = None,
+    init_rhos: Optional[np.ndarray] = None,
+    seed: Optional[int] = None,
+    device=None,
+):
+    """Create (scene, tx, settings, box_points) from config + data, on
+    `device` (by default the CUDA card).
+
+    Without init points, uniform random-in-volume init with the reference's
+    margin semantics (`init_rand_points`) from `cfg.rng` (or `seed`). The
+    kernel backends' capacities are fitted to the initial population on the
+    probe scan points (`grow_only=False`)."""
+    check_ported(cfg, optim)
+    from nlos_gaussian_renderer_tpu_torch.utils.init import init_rand_points
+
+    dev = gmath.default_device(device)
+    rng = np.random.default_rng(cfg.rng if seed is None else seed)
+    pmin = data.volume_position - data.volume_size / 2
+    pmax = data.volume_position + data.volume_size / 2
+    if init_points is None:
+        init_points, init_rhos = init_rand_points(
+            rng, cfg.init_gaussian_num, pmin, pmax, margin=cfg.init_sample_margin
+        )
+    scene = init_scene(init_points, init_rhos, pmin, pmax, max_sh_degree=cfg.sh_degree,
+                       capacity=cfg.capacity(optim), device=dev)
+    tx = make_optimizer(optim)
+    settings = RenderSettings.from_config(cfg)
+    box_points = gmath.volume_box_points(data.volume_position, data.volume_size,
+                                         device=dev)
+    probes = probe_scan_points(data)
+    settings, _ = fit_culling_capacity(settings, scene, probes, box_points, data.c,
+                                       data.deltaT, grow_only=False)
+    if settings.backend in KERNEL_BACKENDS:
+        diag = check_culling_capacity(scene, torch.as_tensor(probes[-1], device=dev),
+                                      box_points, data.c, data.deltaT, settings)
+        if diag["overflowed"]:
+            print(f"WARNING: culling capacity saturated — raise caps! {diag}")
+        else:
+            print(f"culling capacity ok: {diag}")
+    return scene, tx, settings, box_points
+
+
+class OverflowGate:
+    """The overflow gate of `fit` (JAX's `retune`, `force_grow_caps` and
+    `run_gated`): the current step and chunk builders of `settings`, and the
+    re-tunes that grow the capacities.
+
+    `run_gated` runs one step or chunk from a snapshot of the state; when
+    its render overflowed a capacity it restores the snapshot, re-fits
+    (grow only) and runs again, so no truncated gradient reaches the
+    optimizer. A re-fit that changes nothing marks `overflow_detected` and
+    keeps the overflowed result. The re-fit culls the probe scan points
+    and, unlike JAX's (probes only), the overflowed step's, chunk's or
+    window's own cameras: a scan point the probes miss is healed, not
+    recorded (the 256x256 grid's five probes do not bound `k_max` at
+    100k)."""
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
-                 max_sh_degree: int, probe_cams, sh_anneal_interval: int = 1000):
+                 max_sh_degree: int, probe_cams, box_points, c: float, delta_t: float,
+                 sh_anneal_interval: int = 1000):
         self.settings = settings
         self.retunes = 0
+        self.overflow_detected = False
+        self._optim, self._max_sh = optim, max_sh_degree
+        self._interval = sh_anneal_interval
         self._probes = np.asarray(probe_cams, np.float32).reshape(-1, 3)
-        self._make = lambda st: make_train_step(st, optim, max_sh_degree,
-                                                sh_anneal_interval)
-        self._step = self._make(settings)
+        self._box, self._c, self._dt = box_points, c, delta_t
+        self.step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval)
+        self.chunk = None
 
-    def __call__(self, state: TrainState, cams, targets, box_points, c, delta_t,
-                 volume_position) -> StepAux:
-        args = (state, cams, targets, box_points, c, delta_t, volume_position)
-        try:
-            return self._step(*args)
-        except OverflowError as err:
-            print(f"WARNING: {err}; re-fitting and replaying from the pre-update state")
-        probes = np.concatenate(
-            [self._probes, cams.detach().cpu().numpy().reshape(-1, 3)]
-        )
-        self.settings, changed = fit_culling_capacity(
-            self.settings, state.scene, probes, box_points, c, delta_t, grow_only=True
-        )
-        if not changed:
-            raise OverflowError(
-                f"{self.settings.backend}: the re-fit on the probes and this step's "
-                "cameras did not grow the capacities"
-            )
+    def enable_chunk(self) -> ScannedTrainStep:
+        self.chunk = make_scanned_train_step(self.settings, self._optim, self._max_sh,
+                                             self._interval)
+        return self.chunk
+
+    def _rebuild(self, settings: RenderSettings) -> None:
+        self.settings = settings
+        self.step = make_train_step(settings, self._optim, self._max_sh, self._interval)
+        if self.chunk is not None:
+            old = self.chunk
+            self.enable_chunk()
+            self.chunk.captures += old.captures
+            self.chunk.replays += old.replays
         self.retunes += 1
-        if self.settings.backend in RSORT_FAMILY:
-            caps = self.settings.rsort_spec
-            print(f"culling capacities re-tuned: max_groups={caps.max_groups} "
-                  f"w_max={caps.w_max}")
+
+    def retune(self, state: TrainState, cams=None) -> bool:
+        """Grow the capacities to the state's population on the probes (and
+        `cams`, any shape (..., 3)); rebuild on change."""
+        probes = self._probes
+        if cams is not None:
+            probes = np.concatenate(
+                [probes, cams.detach().reshape(-1, 3).cpu().numpy().astype(np.float32)])
+        new, changed = fit_culling_capacity(self.settings, state.scene, probes,
+                                            self._box, self._c, self._dt)
+        if changed:
+            self._rebuild(new)
+            if new.backend in RSORT_FAMILY:
+                caps = new.rsort_spec
+                print("culling capacities re-tuned: "
+                      f"max_groups={caps.max_groups} w_max={caps.w_max}")
+            else:
+                print(f"culling capacity re-tuned: k_max={new.tile_spec.k_max}")
+        return changed
+
+    def force_grow_caps(self, state: TrainState) -> bool:
+        """Grow the rsort-family caps 25% past the fit (the escalation for
+        growth inside a chunk); False for backends without such caps."""
+        if self.settings.backend not in RSORT_FAMILY:
+            return False
+        caps = self.settings.rsort_spec
+        self._rebuild(self.settings._replace(rsort_spec=caps._replace(
+            max_groups=int(caps.max_groups * 1.25) + 1,
+            w_max=int(caps.w_max * 1.25) + 1,
+        )))
+        print("culling capacities force-grown past the fit: "
+              f"max_groups={self.settings.rsort_spec.max_groups} "
+              f"w_max={self.settings.rsort_spec.w_max}")
+        return True
+
+    def run_gated(self, chunked: bool, state: TrainState, cams, *args, what: str = "",
+                  may_densify: bool = False) -> StepAux:
+        """One step (or chunk) of the current builders with the gate: one
+        host read of the overflow flag after it."""
+        snap = snapshot_state(state)
+        aux = (self.chunk if chunked else self.step)(state, cams, *args)
+        replays = 0
+        while bool(aux.overflow):
+            if replays == 4:
+                # Still overflowing after the last replay: keep the result
+                # and record the failure.
+                self.overflow_detected = True
+                break
+            replays += 1
+            print(f"WARNING: culling capacity overflow in {what} — re-tuning caps "
+                  "and re-running from the pre-overflow state")
+            restore_state(state, snap)
+            grown = (self.retune(state, cams)
+                     or (may_densify and self.force_grow_caps(state)))
+            aux = (self.chunk if chunked else self.step)(state, cams, *args)
+            if not grown:
+                # Caps at the fitted maximum and still overflowing: keep the
+                # (superset-capped) result and record the failure.
+                self.overflow_detected = True
+                break
+        return aux
+
+
+def fit(
+    cfg: Config,
+    optim: OptimizationParams,
+    data: NLOSData,
+    num_iters: Optional[int] = None,
+    init_points: Optional[np.ndarray] = None,
+    init_rhos: Optional[np.ndarray] = None,
+    log_every: Optional[int] = None,
+    callback: Optional[Callable[[int, TrainState, StepAux], None]] = None,
+    init_state: Optional[TrainState] = None,
+    callback_every: Optional[int] = None,
+    device=None,
+) -> FitResult:
+    """Run the training loop (reference `train`, `main.py:273-371`), on
+    `device` (by default the CUDA card; `device='cpu'` runs the kernels'
+    plain versions).
+
+    The scan points come from `scan_point_stream(default_rng(cfg.rng))`, as
+    in JAX. Callback cadence: with `callback_every=k` the callback fires
+    where (it + 1) % k == 0 (and at the last iteration) and the chunked path
+    stays on; without it a callback forces the per-step path and fires every
+    iteration.
+
+    Chunked path: K from (50, 25, 20, 10, 5, 4, 2), the largest dividing
+    the log / callback cadence, K steps per `make_scanned_train_step` call
+    (a CUDA graph replayed K times on the card), single steps for the tail;
+    the losses are read once a log window. Per-step path: the overflow flag
+    is OR-ed on the device and read at log boundaries. Either way a chunk
+    or window whose render overflowed a capacity is replayed from its
+    starting state after a re-tune, so the final parameters equal a run
+    whose caps were big enough from the start.
+    """
+    num_iters = num_iters if num_iters is not None else optim.iterations
+    log_every = log_every if log_every is not None else cfg.print_interval
+    rng = np.random.default_rng(cfg.rng)
+
+    scene, tx, settings, box_points = prepare_training(
+        cfg, optim, data, init_points, init_rhos, device=device
+    )
+    dev = box_points.device
+    state = init_state if init_state is not None else create_train_state(scene, tx)
+
+    l, m, n = data.shape
+    nlos = torch.as_tensor(data.nlos_data.reshape(l, m * n), device=dev)
+    # Histogram window [start, end) of every scan point, * gt_times.
+    target_all = nlos[cfg.start:cfg.end, :].T.contiguous() * cfg.gt_times
+    cam_grid = torch.as_tensor(np.ascontiguousarray(data.camera_grid_positions.T),
+                               device=dev)  # (MN, 3)
+    vol_pos = torch.as_tensor(data.volume_position, device=dev)
+    gate = OverflowGate(settings, optim, cfg.sh_degree, probe_scan_points(data),
+                        box_points, data.c, data.deltaT)
+    consts = (box_points, data.c, data.deltaT, vol_pos)
+
+    # The whole run's scan points, drawn up front (the stream is consumed
+    # once an iteration, replays reuse theirs) and copied once: no host data
+    # crosses to the device inside the loop.
+    stream = scan_point_stream(rng, m, n, cfg.batch_size)
+    idx_all = torch.as_tensor(
+        np.stack([next(stream) for _ in range(num_iters)]).astype(np.int64), device=dev
+    ) if num_iters else torch.zeros((0, cfg.batch_size), dtype=torch.int64, device=dev)
+
+    def gather_batch(idx):
+        return cam_grid[idx], target_all[idx]
+
+    losses, eqs = [], []
+    cadence = log_every
+    if callback is not None:
+        cadence = math.gcd(log_every, callback_every) if callback_every else 0
+    chunk = 1
+    if cadence:
+        for cand in (50, 25, 20, 10, 5, 4, 2):
+            if cadence % cand == 0 and num_iters >= cand:
+                chunk = cand
+                break
+
+    def fire_callback(it_end, st, aux_last):
+        if callback is None:
+            return
+        if callback_every is None or it_end % callback_every == 0 or it_end == num_iters:
+            callback(it_end - 1, st, aux_last)
+
+    def finish(t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        stats = None
+        if gate.chunk is not None:
+            ch = gate.chunk
+            stats = dict(chunk=chunk, captures=ch.captures, replays=ch.replays,
+                         capture_s=ch.capture_s, instantiate_s=ch.instantiate_s,
+                         launches_per_replay=dict(ch.launches_per_replay))
+        return FitResult(
+            state=state,
+            losses=np.asarray(losses),
+            equal_losses=np.asarray(eqs),
+            iters_per_sec=num_iters / max(dt, 1e-9),
+            overflow_detected=gate.overflow_detected,
+            retunes=gate.retunes,
+            chunk_stats=stats,
+        )
+
+    if chunk > 1:
+        gate.enable_chunk()
+        t0 = time.perf_counter()
+        it = 0
+        while it < num_iters:
+            k = chunk if it + chunk <= num_iters else 1
+            if k > 1:
+                cams, targets = gather_batch(idx_all[it:it + k])  # (k, B, ...)
+                auxs = gate.run_gated(True, state, cams, targets, *consts,
+                                      what=f"chunk ending at iter {it + k}")
+                aux = StepAux(
+                    loss=auxs.loss[-1], equal_loss=auxs.equal_loss[-1],
+                    pred_hist=auxs.pred_hist[-1], target_hist=auxs.target_hist[-1],
+                    overflow=auxs.overflow,
+                )
+            else:
+                cams, targets = gather_batch(idx_all[it])
+                aux = gate.run_gated(False, state, cams, targets, *consts,
+                                     what=f"iter {it + 1}")
+            it += k
+            if it % log_every == 0 or it == num_iters:
+                losses.append(float(aux.loss))
+                eqs.append(float(aux.equal_loss))
+            fire_callback(it, state, aux)
+        return finish(t0)
+
+    # Per-step path: the overflow flag is accumulated on the device and read
+    # at log boundaries; on overflow the window since the last boundary is
+    # replayed from its retained starting state with re-tuned caps.
+    of_acc = torch.zeros((), dtype=torch.bool, device=dev)
+    window_start = snapshot_state(state)
+    window_steps: list = []
+    t0 = time.perf_counter()
+    for it in range(num_iters):
+        cams, targets = gather_batch(idx_all[it])
+        aux = gate.step(state, cams, targets, *consts)
+        window_steps.append(it)
+        of_acc = of_acc | aux.overflow
+        if (it + 1) % log_every == 0 or it == num_iters - 1:
+            replays = 0
+            while bool(of_acc):
+                if replays == 4:
+                    gate.overflow_detected = True
+                    break
+                replays += 1
+                print(f"WARNING: culling capacity overflow by iter {it + 1} — "
+                      "re-tuning caps and replaying the window")
+                if not gate.retune(state, cam_grid[idx_all[window_steps]]):
+                    gate.overflow_detected = True
+                    break
+                restore_state(state, window_start)
+                of_acc = torch.zeros((), dtype=torch.bool, device=dev)
+                for j in window_steps:
+                    cams_r, targets_r = gather_batch(idx_all[j])
+                    aux = gate.step(state, cams_r, targets_r, *consts)
+                    of_acc = of_acc | aux.overflow
+            losses.append(float(aux.loss))
+            eqs.append(float(aux.equal_loss))
+            of_acc = torch.zeros((), dtype=torch.bool, device=dev)
+            window_start = snapshot_state(state)
+            window_steps = []
+        if callback is not None and callback_every is None:
+            callback(it, state, aux)
         else:
-            print(f"culling capacity re-tuned: k_max={self.settings.tile_spec.k_max}")
-        self._step = self._make(self.settings)
-        return self._step(*args)
+            fire_callback(it + 1, state, aux)
+    return finish(t0)

@@ -1,0 +1,124 @@
+"""The chunk of `fit` on the card: one train step captured into a CUDA
+graph and replayed K times (`train.ScannedTrainStep`).
+
+Marked `cuda`: each test skips (from its fixture) where no GPU is present.
+On the card: `python -m pytest tests/test_torch_fit_cuda.py -m cuda
+--noconftest`. The scene is `prepare_training`'s on the committed Zaragoza
+artifact at 5k Gaussians (`pallas_rsort`, 32x32 angles, 200 bins, B 1):
+a chunk of 8 replayed from its graph equals 8 eager steps from the same
+snapshot bit for bit (or within the spread of two eager runs), the replays
+make no blocking host read, a re-tune captures a new graph that launches
+K1-K4 at the new caps, and the launch counters count wrapper calls only
+(a replay makes none) while the profiler sees each kernel's device events
+in every replay."""
+
+import numpy as np
+import pytest
+import torch
+
+from nlos_gaussian_renderer_tpu_torch import train
+from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
+from nlos_gaussian_renderer_tpu_torch.data.zaragoza import load_zaragoza256_data
+from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+from nlos_gaussian_renderer_tpu_torch.tools import fitbench
+
+pytestmark = pytest.mark.cuda
+K = 8
+K1_K4 = fitbench.RSORT_KERNELS
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs and kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def setup(dev, gaussians=5_000):
+    data = load_zaragoza256_data(fitbench.ARTIFACT)
+    cfg = fitbench.config(data, gaussians=gaussians)
+    optim = OptimizationParams()
+    scene, tx, settings, box = train.prepare_training(cfg, optim, data, device=dev)
+    state = train.create_train_state(scene, tx)
+    consts = (box, data.c, data.deltaT, torch.as_tensor(data.volume_position, device=dev))
+    cams, tgts = fitbench._batches(cfg, data, K, dev)
+    return data, cfg, optim, settings, state, consts, cams, tgts
+
+
+def test_chunk_replay_equals_eager_steps(dev):
+    _, cfg, optim, settings, state, consts, cams, tgts = setup(dev)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree)
+    step = train.make_train_step(settings, optim, cfg.sh_degree)
+    s0 = train.snapshot_state(state)
+    aux = chunk(state, cams, tgts, *consts)
+    replayed = train.snapshot_state(state)
+    runs = []
+    for _ in range(2):
+        train.restore_state(state, s0)
+        losses = [step(state, cams[i], tgts[i], *consts).loss for i in range(K)]
+        runs.append((torch.stack(losses), train.snapshot_state(state)))
+    spread, _ = fitbench._diffs(runs[0][1], runs[1][1])
+    gap, equal = fitbench._diffs(replayed, runs[0][1])
+    print(f"replay vs eager max |diff| {gap:.3e}, eager vs eager {spread:.3e}")
+    assert not bool(aux.overflow) and chunk.captures == 1
+    assert equal or gap <= spread, (gap, spread)
+    assert torch.equal(aux.loss, runs[0][0]) or gap <= spread
+    assert int(state.step) == 1 + K
+
+
+def test_replays_make_no_blocking_host_read(dev):
+    _, cfg, optim, settings, state, consts, cams, tgts = setup(dev)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree)
+    chunk(state, cams, tgts, *consts)  # captures
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = chunk(state, cams, tgts, *consts)
+        with pytest.raises(RuntimeError):
+            float(aux.loss[0])  # a blocking read does raise here
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert chunk.captures == 1 and chunk.replays == 2 * K
+    assert torch.isfinite(aux.loss).all()
+
+
+def test_retune_captures_a_new_graph_at_the_new_caps(dev):
+    _, cfg, optim, settings, state, consts, cams, tgts = setup(dev)
+    starved = settings._replace(rsort_spec=settings.rsort_spec._replace(w_max=4,
+                                                                        max_groups=8))
+    probes = np.zeros((1, 3), np.float32)
+    gate = train.OverflowGate(starved, optim, cfg.sh_degree, probes, *consts[:3])
+    first = gate.enable_chunk()
+    aux = gate.run_gated(True, state, cams, tgts, *consts, what="the test chunk")
+    assert first.captures == 1 and gate.chunk is not first
+    assert gate.retunes >= 1 and not gate.overflow_detected and not bool(aux.overflow)
+    assert gate.settings.rsort_spec.w_max > 4
+    assert gate.chunk.settings == gate.settings
+    assert all(gate.chunk.launches_per_replay[k] == 1 for k in K1_K4)
+
+
+def test_launch_counts_count_calls_and_the_profiler_sees_each_replay(dev):
+    _, cfg, optim, settings, state, consts, cams, tgts = setup(dev)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree)
+    step = train.make_train_step(settings, optim, cfg.sh_degree)
+    s0 = train.snapshot_state(state)
+    cuda_build.reset_launch_counts()
+    captured = cuda_build.captured_counts()
+    chunk(state, cams, tgts, *consts)
+    assert chunk.launches_per_replay == {k: 1 for k in K1_K4}
+    after = cuda_build.captured_counts()
+    assert all(after[k] - captured[k] == 1 for k in K1_K4)
+    counts = cuda_build.launch_counts()
+    assert all(counts[k] == 1 for k in K1_K4)  # the warm-up step; replays make no call
+    train.restore_state(state, s0)
+    graph = fitbench.profile_chunk(lambda: chunk(state, cams, tgts, *consts), K)
+    train.restore_state(state, s0)
+    cuda_build.reset_launch_counts()
+    eager = fitbench.profile_chunk(
+        lambda: [step(state, cams[i], tgts[i], *consts) for i in range(K)], K)
+    calls = cuda_build.launch_counts()
+    for k in K1_K4:
+        ev = eager["kernels"][k]["events"]
+        assert calls[k] == K and ev % K == 0 and ev >= K, (k, calls[k], ev)
+        assert graph["kernels"][k]["events"] == ev // K * chunk.launches_per_replay[k] * K, k
+    assert chunk.captures == 1

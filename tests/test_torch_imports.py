@@ -37,6 +37,7 @@ def test_port_has_the_mirrored_modules():
                 "ops/sampling.py", "ops/schedule.py", "ops/render.py",
                 "ops/fused.py", "ops/fused_rsort.py", "ops/analytic.py",
                 "ops/fused_analytic.py", "train.py", "data/synthetic.py",
+                "data/zaragoza.py", "utils/init.py", "tools/fitbench.py",
                 "tools/microbench.py", "tools/cullbench.py", "tools/grad_parity.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}

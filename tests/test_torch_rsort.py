@@ -32,7 +32,12 @@ from nlos_gaussian_renderer_tpu_torch.ops.render import (
     render_transient,
 )
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
-from nlos_gaussian_renderer_tpu_torch.train import create_train_state, make_train_step
+from nlos_gaussian_renderer_tpu_torch.train import (
+    create_train_state,
+    make_train_step,
+    restore_state,
+    snapshot_state,
+)
 
 torch.set_num_threads(1)
 VOL = np.array([0.0, 1.0, 0.0], np.float32)
@@ -258,14 +263,22 @@ def test_rsort_train_steps_stay_finite_without_overflow():
 
 
 def test_rsort_train_step_raises_on_overflow_before_updating():
+    """(The name predates the change.) A step whose work list overflowed
+    w_max applies the update and returns the flag as a device bool, as in
+    JAX; the snapshot `fit` replays from restores the state it started
+    from."""
     ts = scene_from_numpy(scene_np(48, 6), "cpu")
     tset = _settings(False)[0]._replace(rsort_spec=T_SPEC._replace(w_max=4))
     optim = OptimizationParams()
     state = create_train_state(ts, optim)
     before = {n: p.detach().clone() for n, p in ts.named_parameters()}
-    with pytest.raises(OverflowError):
-        make_train_step(tset, optim, max_sh_degree=1)(
-            state, torch.as_tensor(CAM)[None], torch.full((1, 80), 0.05), T_BOX, C,
-            DT, torch.as_tensor(VOL))
+    snap = snapshot_state(state)
+    aux = make_train_step(tset, optim, max_sh_degree=1)(
+        state, torch.as_tensor(CAM)[None], torch.full((1, 80), 0.05), T_BOX, C,
+        DT, torch.as_tensor(VOL))
+    assert aux.overflow.dtype == torch.bool and bool(aux.overflow)
+    assert state.step == 2 and not torch.equal(ts.means, before["means"])
+    restore_state(state, snap)
     for n, p in ts.named_parameters():
         assert torch.equal(p, before[n]), n
+    assert state.step == 1

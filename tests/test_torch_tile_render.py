@@ -39,9 +39,11 @@ from nlos_gaussian_renderer_tpu_torch.ops.render import (
 )
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import RSortSpec
 from nlos_gaussian_renderer_tpu_torch.train import (
-    GatedTrainStep,
+    OverflowGate,
     create_train_state,
     make_train_step,
+    restore_state,
+    snapshot_state,
 )
 
 torch.set_num_threads(1)
@@ -121,26 +123,36 @@ def test_pallas_adam_steps_match_jax_train_step(n_steps, atol):
 
 
 def test_pallas_train_step_raises_on_overflow_before_updating():
+    """(The name predates the change.) A step whose tile list overflowed
+    k_max no longer raises: as in JAX it applies the update and returns the
+    overflow flag as a device bool, and the state it started from comes
+    back from a snapshot, which is what `fit` replays from."""
     ts = scene_from_numpy(scene_np(48, 3), "cpu")
     tset = settings(False)[0]
     tset = tset._replace(tile_spec=tset.tile_spec._replace(k_max=4))
     optim = OptimizationParams()
     state = create_train_state(ts, optim)
     before = {n: p.detach().clone() for n, p in ts.named_parameters()}
-    with pytest.raises(OverflowError, match="k_max=4.*fit_culling_capacity"):
-        make_train_step(tset, optim, max_sh_degree=1)(
-            state, torch.as_tensor(CAM)[None], torch.full((1, 80), 0.05), T_BOX, C, DT,
-            torch.as_tensor(VOL))
+    snap = snapshot_state(state)
+    aux = make_train_step(tset, optim, max_sh_degree=1)(
+        state, torch.as_tensor(CAM)[None], torch.full((1, 80), 0.05), T_BOX, C, DT,
+        torch.as_tensor(VOL))
+    assert isinstance(aux.overflow, torch.Tensor) and aux.overflow.dtype == torch.bool
+    assert bool(aux.overflow)
+    assert state.step == 2 and not torch.equal(ts.means, before["means"])
+    restore_state(state, snap)
     for n, p in ts.named_parameters():
         assert torch.equal(p, before[n]), n
-    assert state.step == 1
+    assert state.step == 1 and int(state.opt_state.count) == 0
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_rsort"])
 def test_gated_train_step_refits_and_replays(backend):
-    """Capacities too small for the step's camera: the gate re-fits them on
-    the probes plus that camera and replays the step from the unchanged
-    state, which then equals a step built with the re-fitted settings."""
+    """Capacities too small for the step's camera: `fit`'s overflow gate
+    (`OverflowGate.run_gated`) finds the step's device flag set, restores
+    the state it started from, re-fits the capacities on the probe scan
+    points plus that step's camera and replays the step, which then equals
+    a step built with the re-fitted settings."""
     d = scene_np(48, 3)
     tset = settings(False)[0]._replace(
         backend=backend, tile_spec=tf.TileSpec(**dict(SPEC_KW, k_max=4)),
@@ -152,9 +164,10 @@ def test_gated_train_step_refits_and_replays(backend):
     probes = np.zeros((1, 3), np.float32)
 
     state = create_train_state(scene_from_numpy(d, "cpu"), optim)
-    gate = GatedTrainStep(tset, optim, 1, probes)
-    aux = gate(state, *args)
+    gate = OverflowGate(tset, optim, 1, probes, T_BOX, C, DT)
+    aux = gate.run_gated(False, state, *args, what="the test step")
     assert gate.retunes == 1 and state.step == 2 and not bool(aux.overflow)
+    assert not gate.overflow_detected
     if backend == "pallas":
         assert gate.settings.tile_spec.k_max > 4
     else:
