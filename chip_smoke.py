@@ -114,10 +114,27 @@ Phases:
      into the graph;
      the overflow replay at 5k (initial w_max 4) equal to the run with
      fitted caps; `pallas_analytic` and `pallas` through the chunked `fit`
-     (100 iterations, their kernels in the graph). Counters reset before
-     each `fit` and read after it; they count wrapper calls outside a
-     capture (a replay makes none, so the kernels line's `launches` holds
-     no replay). It captures graphs, so it runs last.
+     (100 iterations, their kernels in the graph), and `pallas`'s chunk from
+     its graph against the same 50 steps eagerly (its backward's
+     float-atomic `index_add_`: the spread printed beside `pallas_rsort`'s,
+     not gated). Counters reset before each `fit` and read after it; they
+     count wrapper calls outside a capture (a replay makes none, so the
+     kernels line's `launches` holds no replay). It captures graphs, so it
+     runs last but one;
+ 13. densified `fit` (`fitbench.run_densified`), the reference's training
+     regime: MCMC densification with SGLD noise from 50,000 of 100,000
+     slots, events at post-update counters 100, ..., 300 (index 48 of
+     their chunks of 50), 300 iterations, gated on finite losses, the last
+     below the first, the final population 63,810 (JAX's f32 growth rule),
+     no overflow left, the densify graph replayed 5 times, K1-K4 in the
+     step's graph; the per-step path on the same seed with the same `alive`
+     exactly and losses (rtol 1e-5) and means (rtol 1e-4, atol 1e-6) within
+     JAX's tolerances; one chunk holding two events from its graphs against
+     the same steps and events eagerly, bit for bit; the overflow replay
+     through two events at 5k bit for bit; `pallas_analytic` densified and
+     chunked for 100 iterations with K5 and K6 in the graph. Prints the
+     densified ms/step, one densify event's device ms at 100k capacity, the
+     captures and their seconds, the re-tunes and the caps after each.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -1373,15 +1390,120 @@ def main() -> int:
                   f"{backend} chunked fit: losses {r['losses']}, {r['retunes']} re-tunes, "
                   f"launches a replay {per}, {r['ms_per_step']:.4f} ms/step overall, "
                   f"by chunk {[round(v, 4) for v in r['chunk_ms_per_step']]}, on {card}")
+        pp = out["pallas_replay"]
+        log(f"replay vs eager spread, a chunk of 50 from one snapshot: pallas_rsort "
+            f"{rp['replay_vs_eager_max_abs']:.3e} (bit for bit: {rp['replay_equals_eager']}); "
+            f"pallas {pp['replay_vs_eager_max_abs']:.3e} (bit for bit: "
+            f"{pp['replay_equals_eager']}), pallas eager vs eager "
+            f"{pp['eager_vs_eager_max_abs']:.3e} (bit for bit: {pp['eager_equals_eager']}), "
+            f"losses equal: {pp['losses_equal']}; not gated, on {card}")
+        log("  pallas replay vs eager max |diff| by tensor: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in pp["replay_vs_eager_by_tensor"].items()))
         return out
 
     fit_out = fit_phase()
+
+    @phase("densified fit (100k capacity from 50k, MCMC densification + SGLD, CUDA graphs)")
+    def densified_phase():
+        from nlos_gaussian_renderer_tpu_torch.tools import fitbench
+
+        out = fitbench.run_densified(dev)
+        log(f"events at post-update counters {out['events']}, {out['gaussians']} of "
+            f"{out['cap_max']} slots alive at the start, on {card}")
+        ch, ps = out["chunked"], out["per_step"]
+        st = ch["chunk_stats"]
+        undensified = (None if fit_out is None
+                       else [round(v, 4) for v in fit_out["replay"]["graph_ms_per_step"]])
+        losses = ch["losses"]
+        check(ch["finite"] and len(losses) == 6 and losses[-1] < losses[0],
+              f"densified chunked fit: logged losses {losses}, finite, last below the first")
+        want = 50_000
+        for _ in out["events"]:
+            want = min(out["cap_max"], int(np.float32(1.05) * np.float32(want)))
+        check(ch["alive"] == want == 63_810,
+              f"densified chunked fit: final population {ch['alive']} (f32 growth rule: "
+              f"{want})")
+        check(not ch["overflow_detected"],
+              f"densified chunked fit: no overflow left; {ch['retunes']} re-tunes, caps after "
+              f"each {ch['retune_caps']}")
+        per = st["launches_per_replay"]
+        # Each event once, and once more for each chunk the gate re-ran (one
+        # event a chunk at most here): chunks re-run = (replays - 300) / 50.
+        reruns = (st["replays"] - out["iters"]) // 50
+        check(len(out["events"]) == 5
+              and 5 <= st["densify_replays"] <= 5 + reruns
+              and all(per.get(k, 0) >= 1 for k in fitbench.RSORT_KERNELS),
+              f"densified chunked fit: densify graph replayed {st['densify_replays']} times "
+              f"(5 events, {reruns} chunks re-run by the overflow gate), {st['replays']} step "
+              f"replays, launches a replay of the step's graph {per}")
+        check(all(ch["launch_counts"][k] > 0 for k in fitbench.RSORT_KERNELS),
+              f"densified chunked fit: wrapper calls outside a capture (warm-ups, re-fits) "
+              f"{ {k: ch['launch_counts'][k] for k in fitbench.RSORT_KERNELS} }")
+        log(f"densified chunked fit: {ch['ms_per_step']:.4f} ms/step overall, fit's own "
+            f"{ch['fit_ms_per_step']:.4f}, by chunk "
+            f"{[round(v, 4) for v in ch['chunk_ms_per_step']]} (the undensified chunk of phase "
+            f"12 from its graph: {undensified} ms/step); {st['captures']} captures: "
+            + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in c.items())
+                        for c in st["capture_log"]) + f" s, on {card}")
+        pa = out["paths"]
+        check(ps["finite"] and not ps["overflow_detected"] and pa["alive_equal"]
+              and pa["losses_within"] and pa["means_within"],
+              f"densified per-step fit: losses {ps['losses']}, population {ps['alive']}, "
+              f"{ps['retunes']} re-tunes; vs chunked: alive equal {pa['alive_equal']}, "
+              f"losses max rel {pa['losses_max_rel']:.3e} (rtol 1e-5), means max |diff| "
+              f"{pa['means_max_abs']:.3e} (rtol 1e-4, atol 1e-6), whole state max |diff| "
+              f"{pa['state_max_abs']:.3e} (bit for bit: {pa['state_equal']}); "
+              f"{ps['ms_per_step']:.4f} ms/step overall")
+        rp = out["replay"]
+        check(rp["densify_replays"] == len(rp["densify_events"]) == 2
+              and rp["replay_equals_eager"] and rp["losses_equal"] and not rp["overflow"],
+              f"one chunk of 50 with densify events after steps {rp['densify_events']} "
+              f"(population {rp['alive_before']} -> {rp['alive_after']}) from its graphs vs "
+              f"eagerly: max |diff| {rp['replay_vs_eager_max_abs']:.3e} (bit for bit: "
+              f"{rp['replay_equals_eager']}), eager vs eager {rp['eager_vs_eager_max_abs']:.3e}, "
+              f"losses equal {rp['losses_equal']}")
+        g_ms, e_ms = rp["graph_ms_per_step"], rp["eager_ms_per_step"]
+        log(f"that chunk: graph {[round(v, 4) for v in g_ms]} ms/step, eager "
+            f"{[round(v, 4) for v in e_ms]} ms/step (CUDA events); profiler: device "
+            f"{rp['profile']['device_ms_per_step']:.4f} ms/step, "
+            f"{rp['profile']['events_per_step']:.1f} events/step; captures "
+            f"{rp['capture_log']} s, on {card}")
+        co = out["costs"]
+        log(f"one densify event at capacity {co['capacity']}: graph replay {co['graph_ms']:.4f} "
+            f"ms (CUDA events, mean of 10), device {co['profile']['device_ms_per_step']:.4f} "
+            f"ms in {co['profile']['events_per_step']:.0f} device events (profiler), eager "
+            f"{co['eager_ms']:.4f} ms; clone_state (a callback's copy, "
+            f"{co['state_mb']:.1f} MB) {co['clone_ms']:.4f} ms, on {card}")
+        for name, cnt, ms in co["profile"]["top"]:
+            log(f"  {ms:8.4f} ms  {cnt:5.1f} events  {name}")
+        hl = out["heal"]
+        check(hl["retunes"] >= 1 and not hl["overflow_detected"] and hl["equal"]
+              and hl["losses_equal"] and hl["densify_replays"] >= 2,
+              f"5k starved caps through {hl['densify_replays']} densify replays: "
+              f"{hl['retunes']} re-tunes (fitted caps: {hl['ref_retunes']}), population "
+              f"{hl['alive']} ({hl['ref_alive']}), vs fitted caps max |diff| "
+              f"{hl['max_abs']:.3e} (bit for bit: {hl['equal']}, losses equal: "
+              f"{hl['losses_equal']})")
+        an = out["pallas_analytic"]
+        per = an["chunk_stats"]["launches_per_replay"]
+        check(an["finite"] and not an["overflow_detected"]
+              and an["chunk_stats"]["densify_replays"] >= 1
+              and all(per.get(k, 0) >= 1 for k in PATH_KERNELS["pallas_analytic"]),
+              f"pallas_analytic densified chunked fit: losses {an['losses']}, population "
+              f"{an['alive']}, {an['retunes']} re-tunes, densify replays "
+              f"{an['chunk_stats']['densify_replays']}, launches a replay {per}, "
+              f"{an['ms_per_step']:.4f} ms/step overall, on {card}")
+        return out
+
+    dens_out = densified_phase()
     if (failures or None in trained.values() or tools_counts is None or k9_counts is None
-            or fit_out is None or len(kernel_rows) != len(cuda_build.KERNELS)):
+            or fit_out is None or dens_out is None
+            or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
     on_steps = {k for ks in PATH_KERNELS.values() for k in ks}
-    fit_runs = [fit_out[r] for r in ("chunked", "per_step", "pallas_analytic", "pallas")]
+    fit_runs = ([fit_out[r] for r in ("chunked", "per_step", "pallas_analytic", "pallas")]
+                + [dens_out[r] for r in ("chunked", "per_step", "pallas_analytic")])
     launches = {k: sum(c[k] for c, _, _ in trained.values())
                 + sum(r["launch_counts"][k] for r in fit_runs) if k in on_steps
                 else k9_counts[k] for k in kernel_rows}

@@ -11,7 +11,10 @@ Conventions:
     tensors, which follow their inputs' device. Functions that create tensors
     from host data take a `device`, by default the CUDA card (they raise
     without one; the CPU is used only when asked for, as the tests do).
-  - Randomness comes from a caller's `torch.Generator` or from numpy.
+  - Randomness comes from a caller's `torch.Generator` or from numpy, and
+    in training from `ops/random.py`: counter-based draws keyed on
+    `(seed, step)` with the step read on the device (the SGLD noise, the
+    densify donors), so a replayed chunk draws what it drew before.
   - The eight Pallas kernels of the three kernel backends (`pallas`,
     `pallas_rsort`, `pallas_analytic`) are CUDA C++ kernels under `csrc/`,
     built on first use (`ops/cuda_build.py`), and so is the ninth, the
@@ -23,7 +26,8 @@ Conventions:
     point (on the card by default, `device="cpu"` for the plain versions):
     `data` an `NLOSData` from `load_zaragoza256_data` or
     `data.synthetic.make_synthetic_dataset`. On the card its chunks of K
-    steps replay a CUDA graph of one step.
+    steps replay a CUDA graph of one step, and a second graph of one MCMC
+    densify step (`models/densify.py`) where an event falls.
   - `tools/` holds the measurement tools (microbench, cullbench,
     grad_parity, schedbench, fitbench): on the card by default, on the CPU
     when asked (schedbench and fitbench: the card only).
@@ -33,6 +37,7 @@ __version__ = "0.1.0"
 
 from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
 from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData, load_zaragoza256_data
+from nlos_gaussian_renderer_tpu_torch.models.densify import compute_relocation, densify_step
 from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene, init_scene
 from nlos_gaussian_renderer_tpu_torch.train import FitResult, fit, prepare_training
 
@@ -41,6 +46,8 @@ __all__ = [
     "OptimizationParams",
     "GaussianScene",
     "init_scene",
+    "compute_relocation",
+    "densify_step",
     "NLOSData",
     "load_zaragoza256_data",
     "FitResult",

@@ -27,7 +27,25 @@ degree 3. `run` measures, in this order:
   4. the overflow replay: `fit` at 5k Gaussians with the initial rsort caps
      starved (w_max 4, max_groups 8) against the same run with fitted caps;
   5. `pallas_analytic` and `pallas` through the chunked `fit` (OTHER_ITERS
-     iterations).
+     iterations); `pallas`'s chunk from its graph against the same steps
+     eagerly (its `TakeRows` backward is a float-atomic `index_add_`).
+
+`run_densified` measures the reference's real training regime, MCMC
+densification with SGLD noise (`DENSIFY`), from 50,000 of 100,000 slots
+(`Config(rng=0)`'s uniform init), events at post-update counters 100, ...,
+300, each at index 48 of its chunk of 50:
+
+  6. `fit` on the chunked path (each chunk one step's graph replayed 50
+     times, the densify graph after replay 48) and on the per-step path,
+     compared: `alive`, losses, means; the population, re-tunes and the
+     caps after each, every capture's seconds;
+  7. from one fresh state, one chunk of 50 holding two densify events
+     (every 25 from 10) from its graphs against the same steps and events
+     eagerly, twice; the densify graph's device ms (CUDA events, profiler);
+     the cost of `train.clone_state` (a callback's copy) at 100k;
+  8. the overflow replay through two densify events at 5k (cap 10,000):
+     starved caps against fitted caps;
+  9. `pallas_analytic` densified through the chunked `fit` (OTHER_ITERS).
 
 The card only (CUDA graphs); it prints one JSON line, the numbers
 `chip_smoke.py` gates and records.
@@ -46,6 +64,7 @@ import torch
 from nlos_gaussian_renderer_tpu_torch import train
 from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
 from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData, load_zaragoza256_data
+from nlos_gaussian_renderer_tpu_torch.models.densify import densify_step
 from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
 from nlos_gaussian_renderer_tpu_torch.tools import resolve_device
 
@@ -57,6 +76,12 @@ HEAL_GAUSSIANS = 5_000
 ITERS = 300  # pallas_rsort's chunked and per-step fits
 OTHER_ITERS = 100  # pallas_analytic's and pallas's chunked fits
 RSORT_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
+# The densified regime: MCMC densification every 50 iterations from 50
+# (events at post-update counters 100, ..., 300) with SGLD noise, growing
+# from DENSIFY_GAUSSIANS toward cap_max (the default 100,000).
+DENSIFY = dict(mcmc_densification_flag=True, densify_from_iter=50,
+               densification_interval=50, sgld_noise=True)
+DENSIFY_GAUSSIANS = 50_000
 
 
 def window(data: NLOSData, bins: int = WINDOW_BINS, margin: int = 8):
@@ -101,30 +126,49 @@ def _batches(cfg, data, k, dev):
             torch.as_tensor(np.ascontiguousarray(tgt[idx]), device=dev))
 
 
+def _max_abs(a, b) -> list:
+    return [float((x.detach().double() - y.detach().double()).abs().max()) if x.numel()
+            else 0.0 for x, y in zip(a, b)]
+
+
 def _diffs(a, b):
     """Largest |a - b| over the state's tensors, and whether all are equal."""
-    d = [float((x.detach().double() - y.detach().double()).abs().max()) if x.numel() else 0.0
-         for x, y in zip(a, b)]
-    return max(d), all(torch.equal(x, y) for x, y in zip(a, b))
+    return max(_max_abs(a, b)), all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def replay_vs_eager(cfg, optim, data, dev, k=50):
-    """One chunk from its graph and k eager steps (twice) from one snapshot;
-    then the same chunk and steps timed, and one chunk profiled."""
+# The names of `train.state_tensors`' entries, in order.
+STATE_NAMES = (list(train.GROUPS) + ["alive"] + [f"mu/{g}" for g in train.GROUPS]
+               + [f"nu/{g}" for g in train.GROUPS] + ["count", "step", "active_sh_degree"])
+
+
+def replay_vs_eager(cfg, optim, data, dev, k=50, timing=True):
+    """One chunk from its graph and k eager steps (twice) from one snapshot,
+    the densify events (`fit`'s) after the same steps in both; then, with
+    `timing`, the same chunk and steps timed, and one chunk profiled."""
     scene, tx, settings, box = train.prepare_training(cfg, optim, data, device=dev)
     state = train.create_train_state(scene, tx)
     consts = (box, data.c, data.deltaT, torch.as_tensor(data.volume_position, device=dev))
     cams, tgts = _batches(cfg, data, k, dev)
-    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree)
-    step = train.make_train_step(settings, optim, cfg.sh_degree)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree, seed=cfg.rng,
+                                          densify_seed=cfg.rng + 1)
+    step = train.make_train_step(settings, optim, cfg.sh_degree, seed=cfg.rng)
     s0 = train.snapshot_state(state)
+    step0 = 1  # a fresh state's counter
+    events = [i for i in range(k) if train.densify_fires(optim, step0 + i + 1)]
 
     def eager():
-        auxs = [step(state, cams[i], tgts[i], *consts) for i in range(k)]
+        auxs = []
+        for i in range(k):
+            auxs.append(step(state, cams[i], tgts[i], *consts))
+            if i in events:
+                densify_step(state.scene, state.opt_state, cfg.rng + 1, state.step,
+                             optim.cap_max)
         return train.stack_aux(auxs)
 
-    out = {}
-    aux_r = chunk(state, cams, tgts, *consts)
+    out = dict(densify_events=events, alive_before=int(state.scene.num_alive))
+    aux_r = chunk(state, cams, tgts, *consts, step0=step0)
+    out["alive_after"] = int(state.scene.num_alive)
+    out["densify_replays"] = chunk.densify_replays
     replayed = train.snapshot_state(state)
     train.restore_state(state, s0)
     aux_e = eager()
@@ -133,13 +177,17 @@ def replay_vs_eager(cfg, optim, data, dev, k=50):
     eager()
     eager2 = train.snapshot_state(state)
     out["replay_vs_eager_max_abs"], out["replay_equals_eager"] = _diffs(replayed, eager1)
+    out["replay_vs_eager_by_tensor"] = dict(zip(STATE_NAMES, _max_abs(replayed, eager1)))
     out["eager_vs_eager_max_abs"], out["eager_equals_eager"] = _diffs(eager1, eager2)
     out["losses_equal"] = bool(torch.equal(aux_r.loss, aux_e.loss))
     out["overflow"] = bool(aux_r.overflow) or bool(aux_e.overflow)
     out["caps"] = dict(w_max=settings.rsort_spec.w_max,
                        max_groups=settings.rsort_spec.max_groups)
     out["capture_s"], out["instantiate_s"] = chunk.capture_s, chunk.instantiate_s
+    out["capture_log"] = list(chunk.capture_log)
     out["launches_per_replay"] = dict(chunk.launches_per_replay)
+    if not timing:
+        return out
 
     def timed(run, reps=2):
         ms = []
@@ -154,10 +202,10 @@ def replay_vs_eager(cfg, optim, data, dev, k=50):
             ms.append(e0.elapsed_time(e1) / k)
         return ms
 
-    out["graph_ms_per_step"] = timed(lambda: chunk(state, cams, tgts, *consts))
+    out["graph_ms_per_step"] = timed(lambda: chunk(state, cams, tgts, *consts, step0=step0))
     out["eager_ms_per_step"] = timed(eager)
     train.restore_state(state, s0)
-    out["profile"] = profile_chunk(lambda: chunk(state, cams, tgts, *consts), k)
+    out["profile"] = profile_chunk(lambda: chunk(state, cams, tgts, *consts, step0=step0), k)
     train.restore_state(state, s0)
     cuda_build.reset_launch_counts()
     out["eager_profile"] = profile_chunk(eager, k)
@@ -231,7 +279,9 @@ def overflow_heal(data, optim, dev, iters=100):
     return dict(retunes=res.retunes, overflow_detected=res.overflow_detected,
                 ref_retunes=ref.retunes, max_abs=diff, equal=equal,
                 losses_equal=bool(np.array_equal(res.losses, ref.losses)),
-                captures=res.chunk_stats["captures"])
+                captures=res.chunk_stats["captures"],
+                densify_replays=res.chunk_stats["densify_replays"],
+                alive=int(res.state.scene.num_alive), ref_alive=int(ref.state.scene.num_alive))
 
 
 def _fit_summary(res, seconds, chunk_s, counts, iters):
@@ -239,6 +289,7 @@ def _fit_summary(res, seconds, chunk_s, counts, iters):
                 ms_per_step=1e3 * seconds / iters, fit_ms_per_step=1e3 / res.iters_per_sec,
                 chunk_ms_per_step=[float(1e3 * s / 50) for s in chunk_s],
                 overflow_detected=res.overflow_detected, retunes=res.retunes,
+                retune_caps=res.retune_caps, alive=int(res.state.scene.num_alive),
                 chunk_stats=res.chunk_stats, launch_counts=counts,
                 finite=bool(np.isfinite(res.losses).all()
                             and torch.isfinite(res.state.scene.means).all()))
@@ -263,12 +314,94 @@ def run(device="cuda") -> dict:
         res, sec, chunk_s, counts = timed_fit(config(data, renderer=backend), optim, data,
                                               OTHER_ITERS, dev)
         out[backend] = _fit_summary(res, sec, chunk_s, counts, OTHER_ITERS)
+    out["pallas_replay"] = replay_vs_eager(config(data, renderer="pallas"), optim, data, dev,
+                                           timing=False)
+    return out
+
+
+def _time_ms(run, dev, reps):
+    """Mean ms of `run()` over `reps` calls between CUDA events."""
+    torch.cuda.synchronize(dev)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        run()
+    e1.record()
+    torch.cuda.synchronize(dev)
+    return e0.elapsed_time(e1) / reps
+
+
+def densify_costs(cfg, optim, data, dev, reps=10):
+    """At the densified scene's capacity: one densify event's device ms
+    from its graph (CUDA events over `reps` replays, and the profiler over
+    one), eagerly, and `clone_state`'s ms (a callback's copy)."""
+    scene, tx, settings, box = train.prepare_training(cfg, optim, data, device=dev)
+    state = train.create_train_state(scene, tx)
+    consts = (box, data.c, data.deltaT, torch.as_tensor(data.volume_position, device=dev))
+    cams, tgts = _batches(cfg, data, 2, dev)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree, seed=cfg.rng,
+                                          densify_seed=cfg.rng + 1)
+    # A chunk of 2 whose second step densifies (counter 2 moved to 99).
+    state.step.fill_(98)
+    chunk(state, cams, tgts, *consts, step0=98)
+    s0 = train.snapshot_state(state)
+    out = dict(capacity=state.scene.capacity, densify_replays=chunk.densify_replays)
+    out["graph_ms"] = _time_ms(chunk._dgraph.replay, dev, reps)
+    train.restore_state(state, s0)
+    out["profile"] = profile_chunk(chunk._dgraph.replay, 1)
+    train.restore_state(state, s0)
+    out["eager_ms"] = _time_ms(
+        lambda: densify_step(state.scene, state.opt_state, cfg.rng + 1, state.step,
+                             optim.cap_max), dev, reps)
+    out["clone_ms"] = _time_ms(lambda: train.clone_state(state), dev, reps)
+    out["state_mb"] = sum(t.numel() * t.element_size()
+                          for t in train.state_tensors(state)) / 2**20
+    return out
+
+
+def run_densified(device="cuda") -> dict:
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("fitbench captures CUDA graphs: it runs on the card only")
+    data = load_zaragoza256_data(os.path.normpath(ARTIFACT))
+    optim = OptimizationParams(**DENSIFY)
+    cfg = config(data, gaussians=DENSIFY_GAUSSIANS)
+    out = dict(iters=ITERS, gaussians=DENSIFY_GAUSSIANS, cap_max=optim.cap_max,
+               events=[it + 2 for it in range(ITERS) if train.densify_fires(optim, it + 2)])
+    res, sec, chunk_s, counts = timed_fit(cfg, optim, data, ITERS, dev, log_every=50)
+    out["chunked"] = _fit_summary(res, sec, chunk_s, counts, ITERS)
+    ps, sec, _, counts = timed_fit(cfg, optim, data, ITERS, dev, per_step=True, log_every=50)
+    out["per_step"] = _fit_summary(ps, sec, [], counts, ITERS)
+    a, b = res.state, ps.state
+    means_diff = (a.scene.means - b.scene.means).detach().abs()
+    out["paths"] = dict(
+        alive_equal=bool(torch.equal(a.scene.alive, b.scene.alive)),
+        means_max_abs=float(means_diff.max()),
+        means_within=bool(torch.allclose(a.scene.means, b.scene.means, rtol=1e-4, atol=1e-6)),
+        losses_within=bool(np.allclose(res.losses, ps.losses, rtol=1e-5, atol=0)),
+        losses_max_rel=float(np.max(np.abs(res.losses - ps.losses) / np.abs(ps.losses))),
+        state_max_abs=_diffs(train.state_tensors(a), train.state_tensors(b))[0],
+        state_equal=_diffs(train.state_tensors(a), train.state_tensors(b))[1])
+    del res, ps, a, b
+    # One chunk of 50 holding two densify events (post-update counters 25, 50).
+    every25 = optim.replace(densify_from_iter=10, densification_interval=25)
+    out["replay"] = replay_vs_eager(cfg, every25, data, dev)
+    out["costs"] = densify_costs(cfg, optim, data, dev)
+    # The overflow replay through two densify events (counters 40, 80) at 5k.
+    heal_optim = optim.replace(cap_max=2 * HEAL_GAUSSIANS, densify_from_iter=20,
+                               densification_interval=40)
+    out["heal"] = overflow_heal(data, heal_optim, dev)
+    res, sec, chunk_s, counts = timed_fit(
+        config(data, renderer="pallas_analytic", gaussians=DENSIFY_GAUSSIANS), optim, data,
+        OTHER_ITERS, dev)
+    out["pallas_analytic"] = _fit_summary(res, sec, chunk_s, counts, OTHER_ITERS)
     return out
 
 
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     out = run()
+    out["densified"] = run_densified()
     print(json.dumps(out, default=str))
     return out
 

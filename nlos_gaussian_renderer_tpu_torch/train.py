@@ -7,23 +7,30 @@ Port of `nlos_gaussian_renderer_tpu/train.py`:
   - one (or a batch of) confocal scan point(s) per step, MSE against the
     target histogram, optional alive-masked |opacity| / |scale| regularizers;
   - SH-degree annealing every `sh_anneal_interval` steps, a device `where`;
-  - `make_train_step`: one step that applies the update and returns its
+  - `make_train_step`: one step that applies the update, adds the SGLD
+    position noise (`sgld_position_noise`) when asked, and returns its
     overflow flag on the device. It reads nothing back to the host, so it
     can be captured in a CUDA graph;
   - `make_scanned_train_step`: K steps over device-resident cameras and
     targets. On the card one step is captured into a CUDA graph and
     replayed K times (JAX's `lax.scan` chunk: no host read inside the
-    chunk); on the CPU the same step runs in a loop;
+    chunk), and with `densify_seed` one `densify_step` into a second graph,
+    replayed after the steps whose post-update counter densifies; on the
+    CPU the same calls run in a loop;
   - `fit_culling_capacity`: the kernel backends' static capacities fitted
     to a scene on probe scan points;
   - `prepare_training` and `fit`, the training entry point: the scan-point
     order from `cfg.rng`, the chunk and the log and callback cadences, and
     the overflow gate (`OverflowGate`): a chunk or log window whose render
-    overflowed a capacity is re-tuned and replayed from its starting state.
+    overflowed a capacity is re-tuned and replayed from its starting state;
+    MCMC densification (`models/densify.py`) at `densify_fires`'s counters,
+    each followed by a re-tune.
 
 PyTorch updates in place where JAX returns a new state, so the state to
 replay from is a device-to-device snapshot (`snapshot_state`): the port's
-counterpart of JAX's `donate=False`. MCMC densification, SGLD noise, frozen
+counterpart of JAX's `donate=False`. The SGLD noise and the donor draws
+are keyed on `(seed, step)` with the step read from its device tensor
+(`ops/random.py`), so a replay draws what the first run drew. Frozen
 layouts, `pallas_dsort` and per_gaussian occlusion are not ported: they
 raise `NotImplementedError` naming their ROADMAP.md item.
 """
@@ -41,6 +48,7 @@ import torch
 
 from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
 from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData
+from nlos_gaussian_renderer_tpu_torch.models.densify import densify_step
 from nlos_gaussian_renderer_tpu_torch.models.scene import (
     FIELD_NAMES,
     GaussianScene,
@@ -49,6 +57,7 @@ from nlos_gaussian_renderer_tpu_torch.models.scene import (
 )
 from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+from nlos_gaussian_renderer_tpu_torch.ops import random as prng
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import tune_rsort_spec
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     KERNEL_BACKENDS,
@@ -64,6 +73,8 @@ from nlos_gaussian_renderer_tpu_torch.ops.schedule import expon_lr_schedule_tens
 GROUPS = ("mu", "f_dc", "f_rest", "opacity", "scaling", "rotation")
 GROUP_FIELD = {label: field for field, label in scene_param_labels().items()
                if label in GROUPS}
+# The SGLD normals' first hash lane: apart from the donor draws' lanes 0-3.
+SGLD_LANE0 = 16
 
 
 def not_ported(what: str, item: int):
@@ -74,10 +85,6 @@ def not_ported(what: str, item: int):
 
 def check_ported(cfg: Config, optim: OptimizationParams) -> None:
     """Raise for an option `fit` does not have yet."""
-    if optim.mcmc_densification_flag:
-        raise not_ported("MCMC densification (mcmc_densification_flag)", 5)
-    if optim.sgld_noise:
-        raise not_ported("SGLD position noise (sgld_noise)", 5)
     if cfg.frozen_layout:
         raise not_ported("the frozen layout (frozen_layout)", 8)
     if cfg.renderer == "pallas_dsort":
@@ -187,10 +194,26 @@ def create_train_state(scene: GaussianScene, tx, spatial_lr_scale: float = 1.0
 
 
 def state_tensors(state: TrainState) -> list:
-    """Every tensor a step updates: parameters, moments and counters."""
+    """Every tensor a step or a densify step updates: parameters, the alive
+    mask, moments and counters."""
     o = state.opt_state
-    return (group_params(state.scene) + o.mu + o.nu
+    return (group_params(state.scene) + [state.scene.alive] + o.mu + o.nu
             + [o.count, state.step, state.active_sh_degree])
+
+
+def clone_state(state: TrainState) -> TrainState:
+    """A detached copy of the state in tensors of its own (one state's
+    memory): `fit` trains a copy of its `init_state` and hands each
+    callback one, as JAX's undonated `fit` leaves its input as it was."""
+    with torch.no_grad():
+        sc, o = state.scene, state.opt_state
+        return TrainState(
+            scene=GaussianScene(*(getattr(sc, n).detach().clone() for n in FIELD_NAMES)),
+            opt_state=AdamState(tx=o.tx, mu=[m.clone() for m in o.mu],
+                                nu=[v.clone() for v in o.nu], count=o.count.clone()),
+            step=state.step.clone(),
+            active_sh_degree=state.active_sh_degree.clone(),
+        )
 
 
 def snapshot_state(state: TrainState) -> list:
@@ -306,16 +329,44 @@ def batched_loss_fn(scene: GaussianScene, cams, targets, box_points, c,
     )
 
 
+def sgld_position_noise(scene: GaussianScene, eps: torch.Tensor, lr: torch.Tensor,
+                        optim: OptimizationParams) -> torch.Tensor:
+    """Covariance-shaped exploration noise for the Gaussian positions (the
+    stochastic term of MCMC-GS, JAX `train.sgld_position_noise`): per
+    Gaussian lr * noise_lr * gate(opacity) * alive * (R S eps), gate a sharp
+    reverse sigmoid around the dead-opacity knee, so low-opacity Gaussians
+    random-walk while confident ones stay put. `eps` (N, 3) standard
+    normals, `lr` a 0-d tensor."""
+    rot = gmath.quat_to_rotmat(scene.rotations)  # (N, 3, 3)
+    s_eps = scene.scales * eps  # diag(S) eps
+    shaped = torch.stack(
+        [sum(rot[:, i, j] * s_eps[:, j] for j in range(3)) for i in range(3)], dim=-1)
+    op = torch.sigmoid(scene.logit_opacities[:, 0])
+    gate = torch.sigmoid(-100.0 * (op - optim.sgld_opacity_knee))
+    scale = lr * optim.noise_lr * gate * scene.alive
+    return shaped * scale[:, None]
+
+
 def make_train_step(settings: RenderSettings, optim: OptimizationParams,
-                    max_sh_degree: int, sh_anneal_interval: int = 1000):
+                    max_sh_degree: int, sh_anneal_interval: int = 1000, seed: int = 0):
     """step(state, cams (B, 3), targets (B, num_r), box_points, c, delta_t,
     volume_position) -> StepAux, updating `state` in place.
 
     The update is always applied; `StepAux.overflow` says on the device
     whether a capacity saturated, and `fit` replays from a snapshot when it
-    did (JAX's semantics). The step reads no device value on the host."""
-    if optim.sgld_noise:
-        raise not_ported("SGLD position noise (sgld_noise)", 5)
+    did (JAX's semantics). The step reads no device value on the host.
+
+    With `optim.sgld_noise` the positions take `sgld_position_noise` after
+    the update, from the updated scene, at JAX's lr: the unscaled position
+    schedule at the pre-update step counter (not Adam's count), with normals
+    keyed on (seed, step) (`ops.random.normal`; JAX keys
+    fold_in(PRNGKey(seed), step))."""
+    sgld_lr = expon_lr_schedule_tensor(
+        lr_init=optim.position_lr_init,
+        lr_final=optim.position_lr_final,
+        lr_delay_mult=optim.position_lr_delay_mult,
+        max_steps=optim.position_lr_max_steps,
+    ) if optim.sgld_noise else None
 
     def train_step(state: TrainState, cams, targets, box_points, c, delta_t,
                    volume_position) -> StepAux:
@@ -328,6 +379,11 @@ def make_train_step(settings: RenderSettings, optim: OptimizationParams,
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         state.opt_state.tx.update(state.opt_state, params, grads)
         with torch.no_grad():
+            if sgld_lr is not None:
+                sc = state.scene
+                eps = prng.normal(seed, state.step, tuple(sc.means.shape), sc.means.dtype,
+                                  lane0=SGLD_LANE0)
+                sc.means.add_(sgld_position_noise(sc, eps, sgld_lr(state.step), optim))
             state.step.add_(1)
             bump = (state.step % sh_anneal_interval == 0) & (
                 state.active_sh_degree < max_sh_degree)
@@ -360,6 +416,15 @@ def sync_errors():
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def densify_fires(optim: OptimizationParams, cur: int) -> bool:
+    """True when the densify hook fires at post-update step counter `cur`
+    (JAX `fit.densify_fires`; reference `main.py:243-247`): a pure function
+    of the iteration, so the host knows where every event falls."""
+    return (optim.mcmc_densification_flag
+            and optim.densify_from_iter < cur < optim.densify_until_iter
+            and cur % optim.densification_interval == 0)
+
+
 class ScannedTrainStep:
     """K train steps per call (`make_scanned_train_step`).
 
@@ -375,31 +440,69 @@ class ScannedTrainStep:
     replays run under `sync_errors`: a blocking host read raises, and so
     does a capture that fails.
 
-    Statistics: `captures`, `replays`, and of the last capture `capture_s`,
-    `instantiate_s` and `launches_per_replay` ({kernel: launches a
-    replay})."""
+    With `densify_seed` (and `optim.mcmc_densification_flag`), a call takes
+    `step0`, the state's step counter at entry as the host knows it, and
+    runs `densify_step` after each step whose post-update counter
+    `densify_fires` (JAX branches in the graph with `lax.cond`; a CUDA
+    graph cannot branch, but the host knows where the events fall). On the
+    card that densify step is a second graph, captured the same way and
+    replayed there; its donors are keyed on the device step counter, so a
+    replay of the chunk draws what the first run drew.
+
+    Statistics: `captures`, `replays`, `densify_replays`, of every capture
+    `capture_log` (step graph and densify graph seconds), and of the last
+    `capture_s`, `instantiate_s` (from the log) and `launches_per_replay`
+    ({kernel: launches a replay of the step's graph})."""
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
-                 max_sh_degree: int, sh_anneal_interval: int = 1000):
+                 max_sh_degree: int, sh_anneal_interval: int = 1000, seed: int = 0,
+                 densify_seed: Optional[int] = None):
         self.settings = settings
-        self._step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval)
-        self._graph = None
+        self._optim = optim
+        self._step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval,
+                                     seed)
+        self.densify_seed = densify_seed if optim.mcmc_densification_flag else None
+        self._graph = self._dgraph = None
         self._key = None
         self.captures = 0
         self.replays = 0
-        self.capture_s = None
-        self.instantiate_s = None
+        self.densify_replays = 0
+        self.capture_log = []
         self.launches_per_replay = {}
 
+    @property
+    def capture_s(self) -> Optional[float]:
+        return self.capture_log[-1]["capture_s"] if self.capture_log else None
+
+    @property
+    def instantiate_s(self) -> Optional[float]:
+        return self.capture_log[-1]["instantiate_s"] if self.capture_log else None
+
+    def _densify(self, state: TrainState) -> None:
+        densify_step(state.scene, state.opt_state, self.densify_seed, state.step,
+                     self._optim.cap_max)
+
+    def _fires(self, step0: Optional[int], k: int) -> list:
+        if self.densify_seed is None:
+            return [False] * k
+        if step0 is None:
+            raise ValueError("a densifying chunk needs step0, the state's step counter "
+                             "at entry")
+        return [densify_fires(self._optim, step0 + i + 1) for i in range(k)]
+
     def __call__(self, state: TrainState, cams_k, targets_k, box_points, c, delta_t,
-                 volume_position) -> StepAux:
+                 volume_position, step0: Optional[int] = None) -> StepAux:
         k = cams_k.shape[0]
+        fires = self._fires(step0, k)
         if cams_k.device.type == "cpu":
-            return stack_aux([
-                self._step(state, cams_k[i], targets_k[i], box_points, c, delta_t,
-                           volume_position)
-                for i in range(k)
-            ])
+            auxs = []
+            for i in range(k):
+                auxs.append(self._step(state, cams_k[i], targets_k[i], box_points, c,
+                                       delta_t, volume_position))
+                if fires[i]:
+                    self._densify(state)
+            self.densify_replays += sum(fires)
+            return stack_aux(auxs)
         if cams_k.device.type != "cuda":
             raise ValueError(f"no chunk for device {cams_k.device}")
         key = (tuple(cams_k.shape), tuple(targets_k.shape), targets_k.dtype, c, delta_t,
@@ -414,9 +517,12 @@ class ScannedTrainStep:
         self._i.zero_()
         self._of.zero_()
         with sync_errors():
-            for _ in range(k):
+            for i in range(k):
                 self._graph.replay()
+                if fires[i]:
+                    self._dgraph.replay()
         self.replays += k
+        self.densify_replays += sum(fires)
         return StepAux(loss=self._loss.clone(), equal_loss=self._eq.clone(),
                        pred_hist=self._pred.clone(), target_hist=targets_k,
                        overflow=self._of.clone())
@@ -434,7 +540,7 @@ class ScannedTrainStep:
 
     def _capture(self, state, cams_k, targets_k, box_points, c, delta_t,
                  volume_position):
-        self._graph = None  # release the last graph's pool first
+        self._graph = self._dgraph = None  # release the last graphs' pools first
         k = cams_k.shape[0]
         dev = cams_k.device
         self._cams = cams_k.clone()
@@ -444,52 +550,62 @@ class ScannedTrainStep:
         self._loss = torch.zeros(k, dtype=targets_k.dtype, device=dev)
         self._eq = torch.zeros(k, dtype=targets_k.dtype, device=dev)
         self._pred = torch.zeros(targets_k.shape, dtype=targets_k.dtype, device=dev)
-        args = (state, box_points, c, delta_t, volume_position)
-        # Warm-up on a side stream (lazy initialisation stays out of the
-        # graph), then undo its update.
-        snap = snapshot_state(state)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), sync_errors():
-            self._body(*args)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        restore_state(state, snap)
-        self._i.zero_()
-        self._of.zero_()
-        del snap
-        torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated apart, timed
-        before = cuda_build.captured_counts()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph), sync_errors():
-            self._body(*args)
-        t1 = time.perf_counter()
-        graph.instantiate()
-        torch.cuda.synchronize(dev)
-        self.capture_s = t1 - t0
-        self.instantiate_s = time.perf_counter() - t1
-        after = cuda_build.captured_counts()
-        self.launches_per_replay = {n: after[n] - before[n] for n in after
-                                    if after[n] != before[n]}
+        graph, cap_s, inst_s, self.launches_per_replay = _capture_graph(
+            lambda: self._body(state, box_points, c, delta_t, volume_position), state, dev)
+        log = dict(capture_s=cap_s, instantiate_s=inst_s)
+        if self.densify_seed is not None:
+            self._dgraph, d_cap, d_inst, _ = _capture_graph(lambda: self._densify(state),
+                                                            state, dev)
+            log.update(densify_capture_s=d_cap, densify_instantiate_s=d_inst)
+        self.capture_log.append(log)
         self.captures += 1
         self._graph = graph
+
+
+def _capture_graph(body: Callable[[], None], state: TrainState, dev):
+    """`body()` (which updates `state` in place) captured into a CUDA graph
+    after one warm-up run on a side stream (lazy initialisation stays out of
+    the graph), undone from a snapshot. Returns (graph, capture s,
+    instantiation s, {kernel: wrapper calls recorded})."""
+    snap = snapshot_state(state)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), sync_errors():
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    restore_state(state, snap)
+    del snap
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated apart, timed
+    before = cuda_build.captured_counts()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph), sync_errors():
+        body()
+    t1 = time.perf_counter()
+    graph.instantiate()
+    torch.cuda.synchronize(dev)
+    after = cuda_build.captured_counts()
+    return (graph, t1 - t0, time.perf_counter() - t1,
+            {n: after[n] - before[n] for n in after if after[n] != before[n]})
 
 
 def make_scanned_train_step(settings: RenderSettings, optim: OptimizationParams,
                             max_sh_degree: int, sh_anneal_interval: int = 1000,
                             ref_cam=None, layout_slack: float = 0.0,
-                            densify_seed: Optional[int] = None) -> ScannedTrainStep:
+                            densify_seed: Optional[int] = None,
+                            seed: int = 0) -> ScannedTrainStep:
     """K-step train chunk: step_k(state, cams (K, B, 3), targets (K, B,
-    num_r), box_points, c, delta_t, volume_position) -> StepAux with
-    loss / equal_loss / pred_hist / target_hist stacked along K and the
-    overflow flag OR-reduced on the device (`ScannedTrainStep`). Frozen
-    layouts (`ref_cam`) and in-chunk densification (`densify_seed`) are not
-    ported yet and raise."""
+    num_r), box_points, c, delta_t, volume_position, step0=None) -> StepAux
+    with loss / equal_loss / pred_hist / target_hist stacked along K and
+    the overflow flag OR-reduced on the device (`ScannedTrainStep`). With
+    `densify_seed` (and `optim.mcmc_densification_flag`) the chunk
+    densifies where the per-step path would, its donors keyed on
+    (densify_seed, post-update step); `seed` keys the SGLD noise. Frozen
+    layouts (`ref_cam`) are not ported yet and raise."""
     if ref_cam is not None:
         raise not_ported("the frozen layout (ref_cam)", 8)
-    if densify_seed is not None:
-        raise not_ported("in-chunk densification (densify_seed)", 5)
-    return ScannedTrainStep(settings, optim, max_sh_degree, sh_anneal_interval)
+    return ScannedTrainStep(settings, optim, max_sh_degree, sh_anneal_interval, seed,
+                            densify_seed)
 
 
 # --- scan points, capacities -------------------------------------------------------
@@ -518,10 +634,13 @@ class FitResult:
     # True if any monitored step saturated a culling capacity that could not
     # be healed by re-tuning (should be False for a healthy run).
     overflow_detected: bool = False
-    # Number of capacity re-tunes.
+    # Number of capacity re-tunes, and the capacities after each
+    # ({max_groups, w_max} or {k_max}).
     retunes: int = 0
+    retune_caps: list = dataclasses.field(default_factory=list)
     # The chunked path's CUDA graph statistics (`ScannedTrainStep`): chunk,
-    # captures, replays, last capture_s / instantiate_s, launches_per_replay.
+    # captures, replays, densify_replays, capture_log, last capture_s /
+    # instantiate_s, launches_per_replay.
     chunk_stats: Optional[dict] = None
 
 
@@ -674,31 +793,45 @@ class OverflowGate:
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
                  max_sh_degree: int, probe_cams, box_points, c: float, delta_t: float,
-                 sh_anneal_interval: int = 1000):
+                 sh_anneal_interval: int = 1000, seed: int = 0,
+                 densify_seed: Optional[int] = None):
         self.settings = settings
         self.retunes = 0
+        self.retune_caps = []
         self.overflow_detected = False
         self._optim, self._max_sh = optim, max_sh_degree
         self._interval = sh_anneal_interval
+        self._seed, self._densify_seed = seed, densify_seed
         self._probes = np.asarray(probe_cams, np.float32).reshape(-1, 3)
         self._box, self._c, self._dt = box_points, c, delta_t
-        self.step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval)
+        self.step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval, seed)
         self.chunk = None
 
     def enable_chunk(self) -> ScannedTrainStep:
         self.chunk = make_scanned_train_step(self.settings, self._optim, self._max_sh,
-                                             self._interval)
+                                             self._interval, seed=self._seed,
+                                             densify_seed=self._densify_seed)
         return self.chunk
 
     def _rebuild(self, settings: RenderSettings) -> None:
         self.settings = settings
-        self.step = make_train_step(settings, self._optim, self._max_sh, self._interval)
+        self.step = make_train_step(settings, self._optim, self._max_sh, self._interval,
+                                    self._seed)
         if self.chunk is not None:
             old = self.chunk
             self.enable_chunk()
             self.chunk.captures += old.captures
             self.chunk.replays += old.replays
+            self.chunk.densify_replays += old.densify_replays
+            # The last capture's statistics stand until the new chunk captures.
+            self.chunk.capture_log = old.capture_log
+            self.chunk.launches_per_replay = old.launches_per_replay
         self.retunes += 1
+        if settings.backend in RSORT_FAMILY:
+            caps = settings.rsort_spec
+            self.retune_caps.append(dict(max_groups=caps.max_groups, w_max=caps.w_max))
+        else:
+            self.retune_caps.append(dict(k_max=settings.tile_spec.k_max))
 
     def retune(self, state: TrainState, cams=None) -> bool:
         """Grow the capacities to the state's population on the probes (and
@@ -735,11 +868,12 @@ class OverflowGate:
         return True
 
     def run_gated(self, chunked: bool, state: TrainState, cams, *args, what: str = "",
-                  may_densify: bool = False) -> StepAux:
+                  may_densify: bool = False, **kw) -> StepAux:
         """One step (or chunk) of the current builders with the gate: one
-        host read of the overflow flag after it."""
+        host read of the overflow flag after it. `kw` goes to the chunk
+        (`step0` where it densifies)."""
         snap = snapshot_state(state)
-        aux = (self.chunk if chunked else self.step)(state, cams, *args)
+        aux = (self.chunk if chunked else self.step)(state, cams, *args, **kw)
         replays = 0
         while bool(aux.overflow):
             if replays == 4:
@@ -753,7 +887,7 @@ class OverflowGate:
             restore_state(state, snap)
             grown = (self.retune(state, cams)
                      or (may_densify and self.force_grow_caps(state)))
-            aux = (self.chunk if chunked else self.step)(state, cams, *args)
+            aux = (self.chunk if chunked else self.step)(state, cams, *args, **kw)
             if not grown:
                 # Caps at the fitted maximum and still overflowing: keep the
                 # (superset-capped) result and record the failure.
@@ -780,10 +914,12 @@ def fit(
     plain versions).
 
     The scan points come from `scan_point_stream(default_rng(cfg.rng))`, as
-    in JAX. Callback cadence: with `callback_every=k` the callback fires
-    where (it + 1) % k == 0 (and at the last iteration) and the chunked path
-    stays on; without it a callback forces the per-step path and fires every
-    iteration.
+    in JAX. `init_state` is copied (`clone_state`) and left as it was; the
+    result's state is the trained copy. Callback cadence: with
+    `callback_every=k` the callback fires where (it + 1) % k == 0 (and at
+    the last iteration) and the chunked path stays on; without it a
+    callback forces the per-step path and fires every iteration. Each call
+    gets a detached copy of the state, its own.
 
     Chunked path: K from (50, 25, 20, 10, 5, 4, 2), the largest dividing
     the log / callback cadence, K steps per `make_scanned_train_step` call
@@ -791,8 +927,22 @@ def fit(
     the losses are read once a log window. Per-step path: the overflow flag
     is OR-ed on the device and read at log boundaries. Either way a chunk
     or window whose render overflowed a capacity is replayed from its
-    starting state after a re-tune, so the final parameters equal a run
-    whose caps were big enough from the start.
+    starting state after a re-tune, so on the CPU and on the card's rsort
+    family the final parameters equal a run whose caps were big enough
+    from the start, bit for bit. Not on the card's `pallas` backend: its
+    `TakeRows` backward adds rows by a float-atomic `index_add_`, so two
+    runs of the same steps differ (after 50 steps at 100k on an NVIDIA H100
+    80GB HBM3 at 700 W: up to 3.6e-2 on the quaternions, 2.9e-3 on the
+    opacity logits; ROADMAP.md Queue 3), and a replay there equals such a
+    run only to that spread.
+
+    MCMC densification (`optim.mcmc_densification_flag`) runs
+    `densify_step` after each step whose post-update counter
+    `densify_fires`: inside the chunk (a second graph on the card), host
+    side after a single step, and replayed in order with the per-step
+    window; the capacities are re-tuned after each chunk or step that
+    densified. The donors and the SGLD noise are keyed on the device step
+    counter, so both paths and every replay draw the same.
     """
     num_iters = num_iters if num_iters is not None else optim.iterations
     log_every = log_every if log_every is not None else cfg.print_interval
@@ -802,7 +952,17 @@ def fit(
         cfg, optim, data, init_points, init_rhos, device=device
     )
     dev = box_points.device
-    state = init_state if init_state is not None else create_train_state(scene, tx)
+    state = clone_state(init_state) if init_state is not None else create_train_state(scene, tx)
+    # The step counter at entry, read once: densify events fall at the
+    # post-update counters step0 + it + 1 (JAX's it + 2 from a fresh state).
+    step0 = int(state.step)
+    densify_seed = cfg.rng + 1
+
+    def fires(it: int) -> bool:
+        return densify_fires(optim, step0 + it + 1)
+
+    def densify_now() -> None:
+        densify_step(state.scene, state.opt_state, densify_seed, state.step, optim.cap_max)
 
     l, m, n = data.shape
     nlos = torch.as_tensor(data.nlos_data.reshape(l, m * n), device=dev)
@@ -812,7 +972,8 @@ def fit(
                                device=dev)  # (MN, 3)
     vol_pos = torch.as_tensor(data.volume_position, device=dev)
     gate = OverflowGate(settings, optim, cfg.sh_degree, probe_scan_points(data),
-                        box_points, data.c, data.deltaT)
+                        box_points, data.c, data.deltaT, seed=cfg.rng,
+                        densify_seed=densify_seed)
     consts = (box_points, data.c, data.deltaT, vol_pos)
 
     # The whole run's scan points, drawn up front (the stream is consumed
@@ -837,11 +998,11 @@ def fit(
                 chunk = cand
                 break
 
-    def fire_callback(it_end, st, aux_last):
+    def fire_callback(it_end, aux_last):
         if callback is None:
             return
         if callback_every is None or it_end % callback_every == 0 or it_end == num_iters:
-            callback(it_end - 1, st, aux_last)
+            callback(it_end - 1, clone_state(state), aux_last)
 
     def finish(t0):
         if dev.type == "cuda":
@@ -851,6 +1012,8 @@ def fit(
         if gate.chunk is not None:
             ch = gate.chunk
             stats = dict(chunk=chunk, captures=ch.captures, replays=ch.replays,
+                         densify_replays=ch.densify_replays,
+                         capture_log=list(ch.capture_log),
                          capture_s=ch.capture_s, instantiate_s=ch.instantiate_s,
                          launches_per_replay=dict(ch.launches_per_replay))
         return FitResult(
@@ -860,6 +1023,7 @@ def fit(
             iters_per_sec=num_iters / max(dt, 1e-9),
             overflow_detected=gate.overflow_detected,
             retunes=gate.retunes,
+            retune_caps=list(gate.retune_caps),
             chunk_stats=stats,
         )
 
@@ -869,10 +1033,15 @@ def fit(
         it = 0
         while it < num_iters:
             k = chunk if it + chunk <= num_iters else 1
+            # A densify event inside [it, it + k)? Inside the chunk for
+            # k > 1, host side for the k == 1 tail; either way the caps are
+            # re-fitted to the grown population right after.
+            densified = any(fires(j) for j in range(it, it + k))
             if k > 1:
                 cams, targets = gather_batch(idx_all[it:it + k])  # (k, B, ...)
                 auxs = gate.run_gated(True, state, cams, targets, *consts,
-                                      what=f"chunk ending at iter {it + k}")
+                                      what=f"chunk ending at iter {it + k}",
+                                      may_densify=densified, step0=step0 + it)
                 aux = StepAux(
                     loss=auxs.loss[-1], equal_loss=auxs.equal_loss[-1],
                     pred_hist=auxs.pred_hist[-1], target_hist=auxs.target_hist[-1],
@@ -882,24 +1051,35 @@ def fit(
                 cams, targets = gather_batch(idx_all[it])
                 aux = gate.run_gated(False, state, cams, targets, *consts,
                                      what=f"iter {it + 1}")
+                if densified:
+                    densify_now()
+            if densified:
+                gate.retune(state)
             it += k
             if it % log_every == 0 or it == num_iters:
                 losses.append(float(aux.loss))
                 eqs.append(float(aux.equal_loss))
-            fire_callback(it, state, aux)
+            fire_callback(it, aux)
         return finish(t0)
 
     # Per-step path: the overflow flag is accumulated on the device and read
     # at log boundaries; on overflow the window since the last boundary is
-    # replayed from its retained starting state with re-tuned caps.
+    # replayed, steps and densify events in order, from its retained
+    # starting state with re-tuned caps.
     of_acc = torch.zeros((), dtype=torch.bool, device=dev)
     window_start = snapshot_state(state)
-    window_steps: list = []
+    window_events: list = []  # ("step", it) | ("densify", it)
     t0 = time.perf_counter()
     for it in range(num_iters):
         cams, targets = gather_batch(idx_all[it])
         aux = gate.step(state, cams, targets, *consts)
-        window_steps.append(it)
+        window_events.append(("step", it))
+        if fires(it):
+            densify_now()
+            window_events.append(("densify", it))
+            # The population just grew: re-fit the capacities before the
+            # next render can truncate.
+            gate.retune(state)
         of_acc = of_acc | aux.overflow
         if (it + 1) % log_every == 0 or it == num_iters - 1:
             replays = 0
@@ -910,12 +1090,16 @@ def fit(
                 replays += 1
                 print(f"WARNING: culling capacity overflow by iter {it + 1} — "
                       "re-tuning caps and replaying the window")
-                if not gate.retune(state, cam_grid[idx_all[window_steps]]):
+                steps = [j for ev, j in window_events if ev == "step"]
+                if not gate.retune(state, cam_grid[idx_all[steps]]):
                     gate.overflow_detected = True
                     break
                 restore_state(state, window_start)
                 of_acc = torch.zeros((), dtype=torch.bool, device=dev)
-                for j in window_steps:
+                for ev, j in window_events:
+                    if ev == "densify":
+                        densify_now()
+                        continue
                     cams_r, targets_r = gather_batch(idx_all[j])
                     aux = gate.step(state, cams_r, targets_r, *consts)
                     of_acc = of_acc | aux.overflow
@@ -923,9 +1107,9 @@ def fit(
             eqs.append(float(aux.equal_loss))
             of_acc = torch.zeros((), dtype=torch.bool, device=dev)
             window_start = snapshot_state(state)
-            window_steps = []
+            window_events = []
         if callback is not None and callback_every is None:
-            callback(it, state, aux)
+            callback(it, clone_state(state), aux)
         else:
-            fire_callback(it + 1, state, aux)
+            fire_callback(it + 1, aux)
     return finish(t0)

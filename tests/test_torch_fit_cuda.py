@@ -10,7 +10,10 @@ snapshot bit for bit (or within the spread of two eager runs), the replays
 make no blocking host read, a re-tune captures a new graph that launches
 K1-K4 at the new caps, and the launch counters count wrapper calls only
 (a replay makes none) while the profiler sees each kernel's device events
-in every replay."""
+in every replay. A densified chunk (MCMC densification every 3 steps and
+SGLD noise, 5k of 6k slots) captures its densify step as a second graph
+under the sync check, and its replay equals the same steps and events
+eagerly bit for bit."""
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 from nlos_gaussian_renderer_tpu_torch import train
 from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
 from nlos_gaussian_renderer_tpu_torch.data.zaragoza import load_zaragoza256_data
+from nlos_gaussian_renderer_tpu_torch.models.densify import densify_step
 from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
 from nlos_gaussian_renderer_tpu_torch.tools import fitbench
 
@@ -35,10 +39,10 @@ def dev():
     return torch.device("cuda")
 
 
-def setup(dev, gaussians=5_000):
+def setup(dev, gaussians=5_000, optim=None):
     data = load_zaragoza256_data(fitbench.ARTIFACT)
     cfg = fitbench.config(data, gaussians=gaussians)
-    optim = OptimizationParams()
+    optim = optim or OptimizationParams()
     scene, tx, settings, box = train.prepare_training(cfg, optim, data, device=dev)
     state = train.create_train_state(scene, tx)
     consts = (box, data.c, data.deltaT, torch.as_tensor(data.volume_position, device=dev))
@@ -122,3 +126,36 @@ def test_launch_counts_count_calls_and_the_profiler_sees_each_replay(dev):
         assert calls[k] == K and ev % K == 0 and ev >= K, (k, calls[k], ev)
         assert graph["kernels"][k]["events"] == ev // K * chunk.launches_per_replay[k] * K, k
     assert chunk.captures == 1
+
+
+def test_densified_chunk_replay_equals_eager_bit_for_bit(dev):
+    optim = OptimizationParams(mcmc_densification_flag=True, densify_from_iter=2,
+                               densification_interval=3, cap_max=6_000, sgld_noise=True)
+    _, cfg, optim, settings, state, consts, cams, tgts = setup(dev, optim=optim)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree, seed=0,
+                                          densify_seed=1)
+    step = train.make_train_step(settings, optim, cfg.sh_degree, seed=0)
+    events = [i for i in range(K) if train.densify_fires(optim, 2 + i)]
+    assert events == [1, 4, 7]  # post-update counters 3, 6, 9
+    s0 = train.snapshot_state(state)
+    # Captures both graphs: warm-ups, captures and replays under sync_errors.
+    chunk(state, cams, tgts, *consts, step0=1)
+    train.restore_state(state, s0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = chunk(state, cams, tgts, *consts, step0=1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    replayed = train.snapshot_state(state)
+    assert chunk.captures == 1 and chunk.densify_replays == 2 * len(events)
+    assert int(state.scene.num_alive) > 5_000
+    train.restore_state(state, s0)
+    losses = []
+    for i in range(K):
+        losses.append(step(state, cams[i], tgts[i], *consts).loss)
+        if i in events:
+            densify_step(state.scene, state.opt_state, 1, state.step, optim.cap_max)
+    gap, equal = fitbench._diffs(replayed, train.snapshot_state(state))
+    print(f"densified replay vs eager max |diff| {gap:.3e}")
+    assert equal and torch.equal(aux.loss, torch.stack(losses)), gap
+    assert not bool(aux.overflow) and int(state.step) == 1 + K

@@ -33,7 +33,7 @@ def test_port_module_imports_no_jax(path):
 
 
 def test_port_has_the_mirrored_modules():
-    for rel in ("configs/default.py", "models/scene.py", "ops/math.py",
+    for rel in ("configs/default.py", "models/scene.py", "models/densify.py", "ops/math.py",
                 "ops/sampling.py", "ops/schedule.py", "ops/render.py",
                 "ops/fused.py", "ops/fused_rsort.py", "ops/analytic.py",
                 "ops/fused_analytic.py", "train.py", "data/synthetic.py",
