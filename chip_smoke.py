@@ -115,9 +115,9 @@ Phases:
      the overflow replay at 5k (initial w_max 4) equal to the run with
      fitted caps; `pallas_analytic` and `pallas` through the chunked `fit`
      (100 iterations, their kernels in the graph), and `pallas`'s chunk from
-     its graph against the same 50 steps eagerly (its backward's
-     float-atomic `index_add_`: the spread printed beside `pallas_rsort`'s,
-     not gated). Counters reset before each `fit` and read after it; they
+     its graph against the same 50 steps eagerly, twice: replay vs eager and
+     eager vs eager both 0 (bit for bit; its row gather's backward adds one
+     tile at a time, in tile order). Counters reset before each `fit` and read after it; they
      count wrapper calls outside a capture (a replay makes none, so the
      kernels line's `launches` holds no replay). It captures graphs, so it
      runs last but one;
@@ -134,7 +134,26 @@ Phases:
      through two events at 5k bit for bit; `pallas_analytic` densified and
      chunked for 100 iterations with K5 and K6 in the graph. Prints the
      densified ms/step, one densify event's device ms at 100k capacity, the
-     captures and their seconds, the re-tunes and the caps after each.
+     captures and their seconds, the re-tunes and the caps after each;
+ 14. the CLI (`python -m nlos_gaussian_renderer_tpu_torch.cli`, through
+     `cli.main`) on the Zaragoza artifact in a temporary basedir, at its
+     defaults (carved init at 64^3, SH degree 3, 32x32 angles, B 1) with
+     100k Gaussians, `pallas_rsort` and fitbench's 200-bin window: first
+     the carving vote on the card against the CPU (exactly) and the carved
+     init points from one generator against the CPU votes' (exactly); then
+     `--mode train --iters 300` (args.txt written, the artifact validated,
+     finite losses, the last below the first, no overflow left, K1-K4 in
+     the step's graph, the ms/iter windows beside phase 12's chunk), the
+     final checkpoint restored on the card bit for bit (save and restore
+     ms); `--mode train --iters 100 --resume` ('(step 301)', step 401);
+     `--mode eval` at 128^3 (both PLY files non-empty; grid, point cloud and
+     mesh seconds; point, vertex and face counts), then `eval_density` at
+     the 46^3 grid points against a CPU float64 plain version (rel_l2 <=
+     1e-4) and the normals where |grad| > 1e-3 of its max (cosine >= 1 -
+     1e-4); `--mode validate` ('dataset OK'); `device_memory_stats()`'s
+     peak; and `tools/cli_speed_check.py` (fit with the CLI's callbacks
+     against its bare chunk, 100k, 256x256 scan). Counters reset before
+     each CLI run and read after it; their sum joins the kernels line.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -257,6 +276,84 @@ def cuda_time(fn, reps):
     between CUDA events."""
     fn()
     return elapsed_ms(torch.device("cuda"), lambda: [fn() for _ in range(reps)]) / reps
+
+
+class Tee:
+    """A stdout that writes through and keeps a copy (the CLI's lines are
+    both logged and gated on)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, []
+
+    def write(self, text):
+        self.buf.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.buf)
+
+
+def run_cli(argv):
+    """`cli.main(argv)` with its printed lines kept: (returns, text)."""
+    from nlos_gaussian_renderer_tpu_torch import cli
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = cli.main(argv)
+    return out, tee.text()
+
+
+# Terms whose Mahalanobis distance m reaches this weigh exp(-m/2) <= e^-30
+# (opacity <= 1): the float64 plain density leaves them out, so it misses
+# less than 1e5 * e^-30 < 1e-8 at any point.
+DENSITY_CUT = 60.0
+
+
+def density_plain_f64(scene, points, res: int, blk: int = 4):
+    """The density sum_g op_g exp(-m_g/2) and its gradient at the (res^3, 3)
+    grid points (grid order), on the CPU in float64: for each (blk^3) block
+    of the grid, the Gaussians whose centre lies within sqrt(DENSITY_CUT) of
+    their largest sigma of the block's box, evaluated densely (uncentred
+    form; the gradient in closed form, -sum op p (A x + b / 2))."""
+    from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+
+    with torch.no_grad():
+        mu = scene.means.detach().cpu().double()
+        sc = scene.scales.detach().cpu().double()
+        q = gmath.gaussian_quadratic_form(mu, sc, scene.rotations.detach().cpu().double())
+        op = scene.opacities.detach().cpu().double()[:, 0]
+    live = op > 0
+    mu, q, op = mu[live], q[live], op[live]
+    reach = DENSITY_CUT ** 0.5 * sc[live].amax(1)
+    lin = torch.stack([q[:, 0], q[:, 3] / 2, q[:, 4] / 2, q[:, 6] / 2,
+                       q[:, 3] / 2, q[:, 1], q[:, 5] / 2, q[:, 7] / 2,
+                       q[:, 4] / 2, q[:, 5] / 2, q[:, 2], q[:, 8] / 2], 1)
+    pts = torch.as_tensor(np.asarray(points), dtype=torch.float64).reshape(res, res, res, 3)
+    dens = torch.zeros(res, res, res, dtype=torch.float64)
+    grad = torch.zeros(res, res, res, 3, dtype=torch.float64)
+    pairs = 0
+    for i in range(0, res, blk):
+        for j in range(0, res, blk):
+            for k in range(0, res, blk):
+                box = (slice(i, i + blk), slice(j, j + blk), slice(k, k + blk))
+                p = pts[box].reshape(-1, 3)
+                lo, hi = p.amin(0), p.amax(0)
+                sel = torch.clamp(torch.maximum(lo - mu, mu - hi), min=0).norm(dim=1) <= reach
+                if not bool(sel.any()):
+                    continue
+                pairs += int(sel.sum()) * p.shape[0]
+                m = torch.clamp(gmath.point_monomials(p) @ q[sel].T, min=0.0)
+                w = torch.exp(-0.5 * m) * op[sel]
+                dens[box] = w.sum(1).reshape(dens[box].shape)
+                r = w @ lin[sel]
+                g = -torch.stack([p[:, 0] * r[:, 4 * c] + p[:, 1] * r[:, 4 * c + 1]
+                                  + p[:, 2] * r[:, 4 * c + 2] + r[:, 4 * c + 3]
+                                  for c in range(3)], 1)
+                grad[box] = g.reshape(grad[box].shape)
+    return dens.reshape(-1).numpy(), grad.reshape(-1, 3).numpy(), pairs
 
 
 def nbytes(*ts) -> int:
@@ -1391,14 +1488,16 @@ def main() -> int:
                   f"launches a replay {per}, {r['ms_per_step']:.4f} ms/step overall, "
                   f"by chunk {[round(v, 4) for v in r['chunk_ms_per_step']]}, on {card}")
         pp = out["pallas_replay"]
-        log(f"replay vs eager spread, a chunk of 50 from one snapshot: pallas_rsort "
-            f"{rp['replay_vs_eager_max_abs']:.3e} (bit for bit: {rp['replay_equals_eager']}); "
-            f"pallas {pp['replay_vs_eager_max_abs']:.3e} (bit for bit: "
-            f"{pp['replay_equals_eager']}), pallas eager vs eager "
-            f"{pp['eager_vs_eager_max_abs']:.3e} (bit for bit: {pp['eager_equals_eager']}), "
-            f"losses equal: {pp['losses_equal']}; not gated, on {card}")
-        log("  pallas replay vs eager max |diff| by tensor: " + ", ".join(
-            f"{k} {v:.3e}" for k, v in pp["replay_vs_eager_by_tensor"].items()))
+        check(pp["replay_equals_eager"] and pp["eager_equals_eager"] and pp["losses_equal"]
+              and not pp["overflow"],
+              f"pallas, a chunk of 50 from one snapshot: replay vs eager max |diff| "
+              f"{pp['replay_vs_eager_max_abs']:.3e} (bit for bit: {pp['replay_equals_eager']}), "
+              f"eager vs eager {pp['eager_vs_eager_max_abs']:.3e} (bit for bit: "
+              f"{pp['eager_equals_eager']}), losses equal: {pp['losses_equal']}; pallas_rsort "
+              f"{rp['replay_vs_eager_max_abs']:.3e}, on {card}")
+        if not pp["replay_equals_eager"]:
+            log("  pallas replay vs eager max |diff| by tensor: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in pp["replay_vs_eager_by_tensor"].items()))
         return out
 
     fit_out = fit_phase()
@@ -1496,8 +1595,188 @@ def main() -> int:
         return out
 
     dens_out = densified_phase()
+
+    @phase("the CLI on the Zaragoza artifact: train, --resume, eval, validate "
+           "(100k, pallas_rsort, carved init)")
+    def cli_phase():
+        import os
+        import shutil
+        import tempfile
+
+        from nlos_gaussian_renderer_tpu_torch.data.validate import diagnose
+        from nlos_gaussian_renderer_tpu_torch.data.zaragoza import load_zaragoza256_data
+        from nlos_gaussian_renderer_tpu_torch.tools import cli_speed_check, fitbench
+        from nlos_gaussian_renderer_tpu_torch.utils import carving, checkpoint, export
+        from nlos_gaussian_renderer_tpu_torch.utils.init import (
+            sample_from_feasible_space_jittering,
+        )
+        from nlos_gaussian_renderer_tpu_torch.utils.profiling import device_memory_stats
+
+        artifact = os.path.normpath(fitbench.ARTIFACT)
+        data = load_zaragoza256_data(artifact)
+        start, end = fitbench.window(data)
+        vol, size = data.volume_position, data.volume_size
+        base = tempfile.mkdtemp(prefix="nlos_cli_")
+        exp = os.path.join(base, "zaragoza")
+        ckpt_dir = os.path.join(exp, "model")
+        common = ["--datadir", artifact, "--basedir", base, "--expname", "zaragoza",
+                  "--renderer", "pallas_rsort", "--init-gaussian-num", str(N_GAUSSIANS),
+                  "--start", str(start), "--end", str(end)]
+        out = dict(launch_counts={})
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            # The carving the CLI runs first (Config: 64^3 voxels, ratio
+            # 0.99, rng 0): the card's votes against the CPU's, and the init
+            # points from one generator against the CPU votes' points.
+            coords, cams, radii = carving.carving_inputs(data, 64)
+
+            def votes_on(d):
+                return carving.carving_votes(*(torch.as_tensor(a, device=d)
+                                               for a in (coords, cams, radii)))
+
+            votes_on(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v_card = votes_on(dev).cpu()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            v_cpu = votes_on("cpu")
+            cpu_s = time.perf_counter() - t0
+            check(torch.equal(v_card, v_cpu),
+                  f"carving votes, {coords.shape[0]} voxels x {cams.shape[0]} scan points: card "
+                  f"equal to the CPU (max {int(v_cpu.max())}, min {int(v_cpu.min())}); card "
+                  f"{card_s:.4f} s, CPU {cpu_s:.3f} s, on {card}")
+            pmin, pmax = vol - size / 2, vol + size / 2
+            want = sample_from_feasible_space_jittering(
+                np.random.default_rng(0), N_GAUSSIANS,
+                carving.feasible_from_votes(coords, v_cpu.numpy(), 0.99, vol), pmin, pmax, 64)
+            t0 = time.perf_counter()
+            got = carving.carved_init_points(data, np.random.default_rng(0), N_GAUSSIANS, 64,
+                                             device=dev)
+            carve_s = time.perf_counter() - t0
+            check(all(np.array_equal(g, w) and g.dtype == w.dtype for g, w in zip(got, want)),
+                  f"carved init points ({N_GAUSSIANS}) from one rng: card path equal to the "
+                  f"CPU votes' points; carved_init_points {carve_s:.3f} s, on {card}")
+
+            # 1. train 300 iterations.
+            cuda_build.reset_launch_counts()
+            r1, text1 = run_cli(common + ["--mode", "train", "--iters", "300"])
+            out["launch_counts"]["train"] = cuda_build.launch_counts()
+            res1 = r1["train"]
+            check(os.path.isfile(os.path.join(exp, "args.txt")) and diagnose(data).ok
+                  and "[ERROR]" not in text1,
+                  "args.txt written; the artifact passes validation")
+            losses = res1.losses
+            st = res1.chunk_stats
+            per = st["launches_per_replay"]
+            check(len(losses) == 3 and bool(np.isfinite(losses).all()) and losses[-1] < losses[0]
+                  and not res1.overflow_detected,
+                  f"cli train: logged losses {losses.tolist()}, finite, last below the first, "
+                  f"no overflow left ({res1.retunes} re-tunes), on {card}")
+            check(st["chunk"] == 50 and all(per.get(k, 0) >= 1 for k in fitbench.RSORT_KERNELS),
+                  f"cli train: chunk {st['chunk']}, {st['captures']} captures, {st['replays']} "
+                  f"replays, launches a replay {per} (K1-K4 inside the step's graph), on {card}")
+            windows = [float(line.split("ms/iter")[0].split()[-1])
+                       for line in text1.splitlines() if " iter  loss:" in line]
+            chunk_ref = (None if fit_out is None
+                         else [round(v, 4) for v in fit_out["replay"]["graph_ms_per_step"]])
+            log(f"cli train ms/iter by window of 100 (the first holds set-up and capture): "
+                f"{windows}; fitbench's chunk from its graph (phase 12): {chunk_ref} ms/step; "
+                f"fit's own {1e3 / res1.iters_per_sec:.4f} ms/step, on {card}")
+            target = checkpoint.latest_checkpoint(ckpt_dir)
+            t0 = time.perf_counter()
+            back = checkpoint.restore_checkpoint(target, res1.state)
+            torch.cuda.synchronize()
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+            from nlos_gaussian_renderer_tpu_torch import train as ttrain
+
+            same = all(torch.equal(a, b) and a.device == b.device for a, b in
+                       zip(ttrain.state_tensors(back), ttrain.state_tensors(res1.state)))
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint(os.path.join(base, "timing"), res1.state)
+            save_ms = 1e3 * (time.perf_counter() - t0)
+            check(os.path.basename(target) == "step_301" and same,
+                  f"checkpoint {os.path.basename(target)} restored on the card equals the "
+                  f"trained state bit for bit (parameters, alive, both moments, counters); "
+                  f"save {save_ms:.1f} ms, restore {restore_ms:.1f} ms "
+                  f"({os.path.getsize(os.path.join(target, 'state.npz')) / 2**20:.1f} MB), "
+                  f"on {card}")
+            del back, res1, r1
+
+            # 2. resume 100 iterations.
+            cuda_build.reset_launch_counts()
+            r2, text2 = run_cli(common + ["--mode", "train", "--iters", "100", "--resume"])
+            out["launch_counts"]["resume"] = cuda_build.launch_counts()
+            res2 = r2["train"]
+            check("(step 301)" in text2 and int(res2.state.step) == 401
+                  and bool(np.isfinite(res2.losses).all()) and not res2.overflow_detected,
+                  f"cli train --resume: 'resuming from ... (step 301)', final step "
+                  f"{int(res2.state.step)}, losses {res2.losses.tolist()}, on {card}")
+
+            # 3. eval at eval_resolution 128.
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            r3, text3 = run_cli(common + ["--mode", "eval"])
+            eval_s = time.perf_counter() - t0
+            out["launch_counts"]["eval"] = cuda_build.launch_counts()
+            ev = r3["eval"]
+            plys = [os.path.join(exp, f"output_{k}.ply") for k in ("point_cloud", "mesh")]
+            check(all(os.path.getsize(p) > 0 for p in plys) and len(ev["points"]) > 0
+                  and len(ev["faces"]) > 0 and os.path.basename(ev["checkpoint"]) == "step_401",
+                  f"cli eval of step_401: {len(ev['points'])} points, {len(ev['vertices'])} "
+                  f"vertices, {len(ev['faces'])} faces; PLY sizes "
+                  f"{[os.path.getsize(p) for p in plys]} bytes, on {card}")
+            scene = checkpoint.restore_checkpoint(ev["checkpoint"], res2.state).scene
+            t0 = time.perf_counter()
+            export.density_grid(scene, vol, size, 128)
+            torch.cuda.synchronize()
+            grid_s = time.perf_counter() - t0
+            log(f"cli eval {eval_s:.2f} s in all: density grid 128^3 {grid_s:.3f} s, point "
+                f"cloud (grid + normals at {len(ev['points'])} points + PLY) {ev['cloud_s']:.3f} "
+                f"s, mesh (grid + surface nets + trim + Taubin + PLY) {ev['mesh_s']:.3f} s, "
+                f"on {card}")
+            res = 46
+            axis = np.linspace(-size / 2, size / 2, res).astype(np.float32)
+            pts = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3) + vol
+            d_card = export.eval_density(scene, pts)
+            n_card = export.density_gradient_normals(scene, pts)
+            t0 = time.perf_counter()
+            d_ref, g_ref, pairs = density_plain_f64(scene, pts, res)
+            ref_s = time.perf_counter() - t0
+            rel = float(np.linalg.norm(d_card - d_ref) / np.linalg.norm(d_ref))
+            check(rel <= 1e-4,
+                  f"eval_density on {len(pts)} grid points (46^3), card f32 vs CPU float64: "
+                  f"rel_l2 {rel:.3e} (<= 1e-4); the plain version {ref_s:.2f} s over {pairs} "
+                  f"(point, Gaussian) pairs, on {card}")
+            gn = np.linalg.norm(g_ref, axis=1)
+            big = gn > 1e-3 * gn.max()
+            cos = np.sum(n_card[big] * (-g_ref[big] / gn[big, None]), axis=1)
+            check(big.any() and float(cos.min()) >= 1 - 1e-4,
+                  f"normals where |grad| > 1e-3 of its max ({int(big.sum())} of {len(pts)}): "
+                  f"cosine min {float(cos.min()):.8f} (>= 1 - 1e-4) vs CPU float64, on {card}")
+
+            # 4. validate.
+            _, text4 = run_cli(["--datadir", artifact, "--mode", "validate"])
+            check("dataset OK" in text4 and "schema of" in text4,
+                  "cli validate: 'dataset OK'")
+            mem = device_memory_stats()
+            log(f"device_memory_stats after the CLI runs: {mem} (peak "
+                f"{mem.get('cuda:0:peak_gib', float('nan')):.2f} GiB), on {card}")
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+
+        speed = cli_speed_check.run(N_GAUSSIANS, 300, dev)
+        check(np.isfinite(speed["fit_ms_per_iter_steady"]) and not speed["overflow_detected"],
+              f"cli_speed_check (256x256 scan, bins 100..300, random targets): fit with the "
+              f"CLI's callbacks {speed['fit_ms_per_iter_steady']:.4f} ms/iter steady (windows "
+              f"{[round(w, 4) for w in speed['windows_ms_per_iter']]}), the bare chunk from its "
+              f"graph {speed['bare_chunk_ms_per_step']:.4f} ms/step, on {card}")
+        log("cli_speed_check: " + json.dumps(speed))
+        return out
+
+    cli_out = cli_phase()
     if (failures or None in trained.values() or tools_counts is None or k9_counts is None
-            or fit_out is None or dens_out is None
+            or fit_out is None or dens_out is None or cli_out is None
             or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
@@ -1505,8 +1784,11 @@ def main() -> int:
     fit_runs = ([fit_out[r] for r in ("chunked", "per_step", "pallas_analytic", "pallas")]
                 + [dens_out[r] for r in ("chunked", "per_step", "pallas_analytic")])
     launches = {k: sum(c[k] for c, _, _ in trained.values())
-                + sum(r["launch_counts"][k] for r in fit_runs) if k in on_steps
+                + sum(r["launch_counts"][k] for r in fit_runs)
+                + sum(c[k] for c in cli_out["launch_counts"].values()) if k in on_steps
                 else k9_counts[k] for k in kernel_rows}
+    log("launches by CLI run (wrapper calls outside a capture): "
+        + json.dumps(cli_out["launch_counts"]))
     # Launches a step of the fit path: in the graph of one step.
     fit_per_step = dict.fromkeys(kernel_rows, 0)
     for r in (fit_out["chunked"], fit_out["pallas_analytic"], fit_out["pallas"]):

@@ -28,9 +28,16 @@ Conventions:
     `data.synthetic.make_synthetic_dataset`. On the card its chunks of K
     steps replay a CUDA graph of one step, and a second graph of one MCMC
     densify step (`models/densify.py`) where an event falls.
+  - `python -m nlos_gaussian_renderer_tpu_torch.cli` is the user's entry
+    point, JAX's CLI with `--device` (default `cuda`): train (carved init, the
+    vote on the device; checkpoints `step_{N}/state.npz`,
+    `utils/checkpoint.py`), `--resume`, eval (density, normals, point
+    cloud and mesh PLY, `utils/export.py`) and validate
+    (`data/validate.py`).
   - `tools/` holds the measurement tools (microbench, cullbench,
-    grad_parity, schedbench, fitbench): on the card by default, on the CPU
-    when asked (schedbench and fitbench: the card only).
+    grad_parity, schedbench, fitbench, cli_speed_check): on the card by
+    default, on the CPU when asked (schedbench, fitbench and
+    cli_speed_check: the card only).
 """
 
 __version__ = "0.1.0"

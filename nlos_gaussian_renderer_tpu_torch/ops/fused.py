@@ -12,7 +12,7 @@ point through the tile backend:
      more Gaussians than that is truncated and reported in `overflowed`).
   3. **Gather** (`take_rows`): forms and channel weights ride one row gather
      into the (T, k_max, 10 + C) per-tile lists; its backward is one
-     `index_add_`.
+     `index_add_` a tile, in tile order (a fixed summation order).
   4. **Field** (`FusedField`): kernel K7 (`field_fwd`) sums each sample's
      tile list, kernel K8 (`field_bwd`) gives the lists' cotangents.
 
@@ -301,11 +301,14 @@ def untile_field_t(out, ns: int, num_r: int, spec: TileSpec,
 
 
 class TakeRows(torch.autograd.Function):
-    """`table[idx]` for (T, K) row ids; the backward is one `index_add_` of
-    the (T*K) cotangent rows. Each tile's slots at or past its count go to
-    their own sentinel row past the table (as JAX's unique-scatter path
-    does): their cotangents are zero, and the repeated pad ids then add no
-    atomic traffic to one hot row."""
+    """`table[idx]` for (T, K) row ids; the backward adds the cotangent rows
+    in a fixed order: one `index_add_` a tile, in tile order. A tile's list
+    holds distinct ids (`compact_tiles`), and its slots at or past its count
+    go to their own sentinel rows past the table (as JAX's unique-scatter
+    path does; their cotangents are zero), so no call adds to one row twice
+    and each row's sum runs over the tiles in ascending order: the same sum
+    on every run, eagerly and from a CUDA graph. One `index_add_` of all
+    T*K rows would leave the order of a row's float atomics to the card."""
 
     @staticmethod
     def forward(ctx, table, idx, counts):
@@ -319,9 +322,9 @@ class TakeRows(torch.autograd.Function):
         k = idx.shape[1]
         slot = torch.arange(k, device=idx.device)[None, :]
         dst = torch.where(slot < counts[:, None], idx.long(), ctx.n_rows + slot)
-        tail = grad.shape[2:]
-        buf = grad.new_zeros((ctx.n_rows + k,) + tuple(tail))
-        buf.index_add_(0, dst.reshape(-1), grad.reshape((-1,) + tuple(tail)))
+        buf = grad.new_zeros((ctx.n_rows + k,) + tuple(grad.shape[2:]))
+        for t in range(idx.shape[0]):
+            buf.index_add_(0, dst[t], grad[t])
         return buf[:ctx.n_rows], None, None
 
 

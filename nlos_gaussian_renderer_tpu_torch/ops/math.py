@@ -56,6 +56,11 @@ def rho_to_sh(rho):
     return (rho - 0.5) / C0
 
 
+def sh_to_rho(sh):
+    """DC SH coefficient -> albedo."""
+    return sh * C0 + 0.5
+
+
 _DEVICE_CONSTANTS: dict = {}
 
 
@@ -154,6 +159,16 @@ def eval_sh_basis(dirs, max_degree: int):
     return torch.stack(basis, dim=-1)
 
 
+def eval_sh(deg: int, sh, dirs):
+    """SH value at unit directions with a static degree: the first
+    (deg+1)**2 coefficients of `sh` (..., K) against the basis of `dirs`
+    (..., 3)."""
+    k = (deg + 1) ** 2
+    if sh.shape[-1] < k:
+        raise ValueError(f"{sh.shape[-1]} SH coefficients, degree {deg} needs {k}")
+    return torch.sum(eval_sh_basis(dirs, deg) * sh[..., :k], dim=-1)
+
+
 def eval_sh_dynamic(sh, dirs, active_degree, max_degree: int):
     """SH value with an active degree that may be an int or a 0-d tensor:
     the full max_degree basis is evaluated and the bands above
@@ -176,6 +191,16 @@ def cartesian_to_spherical(pts):
     )
     phi = torch.atan2(pts[..., 1], pts[..., 0])
     return torch.stack([r, theta, phi], dim=-1)
+
+
+def spherical_to_cartesian(pts):
+    """(r, theta, phi) -> (x, y, z)."""
+    r, theta, phi = pts[..., 0], pts[..., 1], pts[..., 2]
+    sin_t = torch.sin(theta)
+    return torch.stack(
+        [r * sin_t * torch.cos(phi), r * sin_t * torch.sin(phi), r * torch.cos(theta)],
+        dim=-1,
+    )
 
 
 _BOX_SIGNS = np.array(
@@ -266,3 +291,20 @@ def mahalanobis_matmul(point_feats, gauss_feats):
     clamped at 0 against cancellation. f32 matmuls stay f32: callers on the
     card keep `torch.backends.cuda.matmul.allow_tf32` False."""
     return torch.clamp(point_feats @ gauss_feats.transpose(-1, -2), min=0.0)
+
+
+def build_covariance(scales, quats):
+    """(N, 3, 3) covariances L L^T with L = R diag(s), from (N, 3)
+    post-activation scales and (N, 4) quaternions."""
+    rot = quat_to_rotmat(quats)
+    lmat = rot * scales[:, None, :]
+    return lmat @ lmat.transpose(-1, -2)
+
+
+def strip_symmetric(cov):
+    """(N, 6) upper triangle [xx, xy, xz, yy, yz, zz] of (N, 3, 3) symmetric
+    matrices."""
+    return torch.stack(
+        [cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2], cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]],
+        dim=-1,
+    )

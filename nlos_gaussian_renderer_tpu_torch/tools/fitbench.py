@@ -28,7 +28,7 @@ degree 3. `run` measures, in this order:
      starved (w_max 4, max_groups 8) against the same run with fitted caps;
   5. `pallas_analytic` and `pallas` through the chunked `fit` (OTHER_ITERS
      iterations); `pallas`'s chunk from its graph against the same steps
-     eagerly (its `TakeRows` backward is a float-atomic `index_add_`).
+     eagerly, twice (bit for bit, as `pallas_rsort`'s).
 
 `run_densified` measures the reference's real training regime, MCMC
 densification with SGLD noise (`DENSIFY`), from 50,000 of 100,000 slots
@@ -48,7 +48,11 @@ densification with SGLD noise (`DENSIFY`), from 50,000 of 100,000 slots
   9. `pallas_analytic` densified through the chunked `fit` (OTHER_ITERS).
 
 The card only (CUDA graphs); it prints one JSON line, the numbers
-`chip_smoke.py` gates and records.
+`chip_smoke.py` gates and records. `--pallas-step` measures `pallas`'s
+chunk alone (`pallas_step`): run as a file with another tree first on
+PYTHONPATH, it compares two trees' steps,
+
+    PYTHONPATH=<tree> python nlos_gaussian_renderer_tpu_torch/tools/fitbench.py --pallas-step
 """
 
 from __future__ import annotations
@@ -398,10 +402,27 @@ def run_densified(device="cuda") -> dict:
     return out
 
 
+def pallas_step(device="cuda") -> dict:
+    """`pallas`'s chunk of 50 on the artifact at 100k: replay vs eager (and
+    eager vs eager), each timed between CUDA events and under the profiler
+    (device ms a step). Run as a file with another tree's package first on
+    PYTHONPATH, it times that tree's step with this function."""
+    dev = resolve_device(device)
+    data = load_zaragoza256_data(os.path.normpath(ARTIFACT))
+    out = replay_vs_eager(config(data, renderer="pallas"), OptimizationParams(), data, dev)
+    out["package"] = os.path.dirname(os.path.dirname(os.path.abspath(train.__file__)))
+    return out
+
+
 def main():
+    import sys
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = run()
-    out["densified"] = run_densified()
+    if "--pallas-step" in sys.argv[1:]:
+        out = pallas_step()
+    else:
+        out = run()
+        out["densified"] = run_densified()
     print(json.dumps(out, default=str))
     return out
 

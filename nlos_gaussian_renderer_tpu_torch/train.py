@@ -927,14 +927,10 @@ def fit(
     the losses are read once a log window. Per-step path: the overflow flag
     is OR-ed on the device and read at log boundaries. Either way a chunk
     or window whose render overflowed a capacity is replayed from its
-    starting state after a re-tune, so on the CPU and on the card's rsort
-    family the final parameters equal a run whose caps were big enough
-    from the start, bit for bit. Not on the card's `pallas` backend: its
-    `TakeRows` backward adds rows by a float-atomic `index_add_`, so two
-    runs of the same steps differ (after 50 steps at 100k on an NVIDIA H100
-    80GB HBM3 at 700 W: up to 3.6e-2 on the quaternions, 2.9e-3 on the
-    opacity logits; ROADMAP.md Queue 3), and a replay there equals such a
-    run only to that spread.
+    starting state after a re-tune, so the final parameters equal a run
+    whose caps were big enough from the start, bit for bit, on the CPU and
+    on the card (every kernel backend sums in a fixed order; `pallas`'s row
+    gather adds its cotangents one tile at a time, `fused.TakeRows`).
 
     MCMC densification (`optim.mcmc_densification_flag`) runs
     `densify_step` after each step whose post-update counter

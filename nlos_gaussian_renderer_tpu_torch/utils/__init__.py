@@ -1,1 +1,2 @@
-"""Host-side utilities (scene initialization)."""
+"""Host-side utilities: scene initialization and space carving,
+checkpoints, geometry export, profiling."""

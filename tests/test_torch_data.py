@@ -2,7 +2,8 @@
 
 The Zaragoza loader and writer (`data/zaragoza.py`) on the committed
 `examples/data/zaragoza64_bunny.mat`, field by field and exactly; the init
-samplers (`utils/init.py`) from one numpy generator, exactly; and
+samplers (`utils/init.py`, the surface sampler on the port's surface nets)
+from one numpy generator, exactly; and
 `make_synthetic_dataset` at JAX's tiny training size (4x4 scan, 64 bins, 8
 GT Gaussians, ns 8): every field exact except the rendered transients,
 rel_l2 <= 1e-4 (the two packages' f32 renders differ in summation order)."""
@@ -94,10 +95,47 @@ def test_feasible_space_jittering_matches_jax():
         np.testing.assert_array_equal(g, w)
 
 
-def test_feasible_surface_sampling_raises_until_export_is_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tinit.sample_from_feasible_surface(np.random.default_rng(0), 10,
-                                           np.zeros((4, 3)), -np.ones(3), np.ones(3), 8)
+def _ball(s=24, radius=0.3):
+    """A solid-ball feasible set centred at the origin in [-0.5, 0.5]^3."""
+    ax = np.linspace(-0.5, 0.5, s, dtype=np.float32)
+    g = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    return g[np.linalg.norm(g, axis=1) <= radius], s, radius
+
+
+def test_surface_vs_jitter_distribution_and_jax():
+    """JAX's TestSurfaceSampling.test_surface_vs_jitter_distribution on the
+    port, and the port's surface samples equal JAX's from one generator."""
+    feasible, s, radius = _ball()
+    pmin, pmax = np.full(3, -0.5, np.float32), np.full(3, 0.5, np.float32)
+    surf, rho = tinit.sample_from_feasible_surface(np.random.default_rng(1), 800, feasible,
+                                                   pmin, pmax, s)
+    want = jinit.sample_from_feasible_surface(np.random.default_rng(1), 800, feasible, pmin,
+                                              pmax, s)
+    for g, w in zip((surf, rho), want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    jit, _ = tinit.sample_from_feasible_space_jittering(np.random.default_rng(1), 800, feasible,
+                                                        pmin, pmax, s)
+    r_surf = np.linalg.norm(surf, axis=1)
+    r_jit = np.linalg.norm(jit, axis=1)
+    voxel = 1.0 / (s - 1)
+    assert abs(np.median(r_surf) - radius) < 1.5 * voxel
+    assert np.std(r_surf) < 2 * voxel
+    assert np.std(r_jit) > 3 * np.std(r_surf)
+    assert (r_jit < radius - 2 * voxel).mean() > 0.15
+
+
+def test_sparse_set_falls_back_as_jax():
+    """One feasible voxel: the surface sampler falls back to jittering,
+    and returns JAX's points from one generator."""
+    pmin, pmax = np.full(3, -0.5, np.float32), np.full(3, 0.5, np.float32)
+    one = np.zeros((1, 3), np.float32)
+    pts, rho = tinit.sample_from_feasible_surface(np.random.default_rng(0), 50, one, pmin,
+                                                  pmax, 8)
+    assert pts.shape == (50, 3) and np.isfinite(pts).all()
+    want = jinit.sample_from_feasible_surface(np.random.default_rng(0), 50, one, pmin, pmax, 8)
+    np.testing.assert_array_equal(pts, want[0])
+    np.testing.assert_array_equal(rho, want[1])
 
 
 def test_synthetic_dataset_matches_jax():

@@ -10,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "nlos_gaussian_renderer_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "nlos_gaussian_renderer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "nlos_gaussian_renderer_tpu")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -37,8 +37,11 @@ def test_port_has_the_mirrored_modules():
                 "ops/sampling.py", "ops/schedule.py", "ops/render.py",
                 "ops/fused.py", "ops/fused_rsort.py", "ops/analytic.py",
                 "ops/fused_analytic.py", "train.py", "data/synthetic.py",
-                "data/zaragoza.py", "utils/init.py", "tools/fitbench.py",
-                "tools/microbench.py", "tools/cullbench.py", "tools/grad_parity.py"):
+                "data/zaragoza.py", "data/validate.py", "data/stanford.py",
+                "utils/init.py", "utils/checkpoint.py", "utils/profiling.py",
+                "utils/carving.py", "utils/export.py", "visualize.py", "cli.py",
+                "tools/fitbench.py", "tools/microbench.py", "tools/cullbench.py",
+                "tools/grad_parity.py", "tools/cli_speed_check.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",

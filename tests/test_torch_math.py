@@ -73,6 +73,28 @@ class TestMath:
     def test_cartesian_to_spherical(self):
         close(tm.cartesian_to_spherical(t(PTS)), jm.cartesian_to_spherical(jnp.asarray(PTS)))
 
+    def test_sh_to_rho_inverts_rho_to_sh(self):
+        sh = RNG.normal(size=32).astype(np.float32)
+        close(tm.sh_to_rho(t(sh)), jm.sh_to_rho(jnp.asarray(sh)))
+        x = t(RNG.uniform(0.05, 0.95, 32))
+        close(tm.sh_to_rho(tm.rho_to_sh(x)), x.numpy())
+
+    @pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+    def test_eval_sh_static_degree(self, deg):
+        sh = RNG.normal(size=(64, 25)).astype(np.float32)
+        close(tm.eval_sh(deg, t(sh), t(DIRS)), jm.eval_sh(deg, jnp.asarray(sh), jnp.asarray(DIRS)))
+
+    def test_spherical_to_cartesian_round_trip(self):
+        sph = np.asarray(jm.cartesian_to_spherical(jnp.asarray(PTS)))
+        close(tm.spherical_to_cartesian(t(sph)), jm.spherical_to_cartesian(jnp.asarray(sph)))
+        close(tm.spherical_to_cartesian(tm.cartesian_to_spherical(t(PTS))), PTS)
+
+    def test_covariance_and_strip_symmetric(self):
+        ref = jm.build_covariance(jnp.asarray(SCALES), jnp.asarray(QUATS))
+        got = tm.build_covariance(t(SCALES), t(QUATS))
+        close(got, ref)
+        close(tm.strip_symmetric(got), jm.strip_symmetric(ref))
+
     def test_volume_box_points(self):
         close(tm.volume_box_points(VOL, 0.6, device="cpu"),
               jm.volume_box_points(jnp.asarray(VOL), 0.6))
