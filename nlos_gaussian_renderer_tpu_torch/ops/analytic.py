@@ -136,11 +136,16 @@ def analytic_field_response(scene: GaussianScene, grid: ShellGrid, camera_pos,
                             gauss_chunk: Optional[int] = None):
     """Analytic counterpart of `render.field_response`, flattened (A,): no
     occlusion, or aggregate `netf` / `nlos-neus` with the numerical path's
-    discrete exp(-cumsum) transmittance. `per_gaussian` raises, as in JAX."""
+    discrete exp(-cumsum) transmittance. `per_gaussian` raises, as in JAX:
+    `render_transient` renders that mode in Gaussian chunks
+    (`render.field_response_per_gaussian_chunked`), so only a direct call
+    reaches the guard."""
     from nlos_gaussian_renderer_tpu_torch.ops.render import _composite, channel_weights
 
     if settings.occlusion and settings.occlusion_mode != "aggregate":
-        raise NotImplementedError("per_gaussian occlusion uses the dense backend")
+        raise NotImplementedError(
+            "per_gaussian occlusion has no analytic field: render_transient renders it "
+            "with field_response_per_gaussian_chunked")
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
     field = analytic_field(scene, grid, camera_pos, w, settings.scaling_modifier,
                            gauss_chunk)

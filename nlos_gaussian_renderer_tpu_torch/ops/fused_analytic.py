@@ -404,13 +404,13 @@ def analytic_gaussian_field(gfeat, channel_weights, grid, tiles: RSortTiles,
     are tau / bin_width, the bin average of the field the numerical backends
     sample at bin centres.
 
-    `tiles` must come from `rsort_cull(..., gw=cat([gfeat, channel_weights]))`:
-    the field reads the table the cull gathered. (The JAX version's
-    `pad_gather` branch for tiles without a table is not ported.)"""
+    With `tiles` from `rsort_cull(..., gw=cat([gfeat, channel_weights]))`
+    the field reads the table the cull gathered; from a cull without `gw`,
+    the table is gathered here (`fused_rsort._field_table`)."""
     num_r, ns = grid.r.shape[0], grid.theta.shape[0]
     n_tt, n_pt, n_ch = _tile_counts(ns, num_r, spec)
     c = channel_weights.shape[1]
-    table = _field_table(tiles, gfeat.shape[1], c, "analytic_gaussian_field")
+    table = _field_table(tiles, gfeat, channel_weights, "analytic_gaussian_field")
     with torch.no_grad():
         slab, aux, edges = analytic_operands(grid, cam, spec)
     geo = RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,

@@ -11,6 +11,10 @@ scan point:
   2. **Layout** (`_layout_from_geometry`): a stable sort by (word, d) and
      block-aligned pattern groups: every g_tile block is pattern-pure and
      d-contiguous, so its radial footprint per tile is a tight interval.
+     A frozen layout (`rsort_layout`, from a reference camera with a radial
+     slack) skips this step: built once, it serves many scan points, whose
+     words and block intervals are still this camera's, so the render is
+     exact; a Gaussian it holds no slot for raises the overflow flag.
   3. **Wide gather** (`WidePadGather`): the differentiable forms|weights and
      the geometry columns ride one row gather into the padded layout; the
      backward is the inverse-permutation gather.
@@ -102,8 +106,12 @@ class RSortSpec(NamedTuple):
     (bf16 variants of the TPU kernels), `d_max`/`dup_rows` (dsort, not
     ported) and `ws_pallas` (the work lists always go through K1/K2). Its
     kernels cover exactly each item's bin range [bl, bh], so `gate_bins`
-    only has to divide `t_chunk`; `mask_dead_blocks` is moot because the
-    backward output is zero-filled.
+    only has to divide `t_chunk`; `mask_dead_blocks` is moot because K4
+    and K6 write every row of their output, zeros in the blocks no item
+    names. That covers a frozen layout's slots too: a row this camera
+    culls keeps its slot with word 0, its block may have no item, and its
+    cotangent row is 0 either way (the gather's backward also routes it to
+    the zero row, `rsort_schedule`).
     """
 
     t_theta: int = 8
@@ -162,7 +170,9 @@ class RSortTiles(NamedTuple):
 
 
 class RSortLayout(NamedTuple):
-    """Sorted block layout of one cull."""
+    """Sorted block layout of one cull: the sort, the group search and the
+    slot scatter, which a frozen layout (`rsort_layout`) takes out of the
+    step and builds once for many scan points."""
 
     perm: torch.Tensor  # (G,) int64 sorted position -> original row
     src: torch.Tensor  # (G_pad,) int64 padded slot -> sorted position; G = padding
@@ -177,9 +187,10 @@ def _padded_rows(g: int, spec: RSortSpec) -> int:
 
 
 def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
-                   scaling_modifier: float = 1.0):
+                   scaling_modifier: float = 1.0, slack: float = 0.0):
     """(d, radius, word, valid_g, counts) for one camera; `word` is the
-    int32 rect word, 0 when the Gaussian is culled."""
+    int32 rect word, 0 when the Gaussian is culled. `slack` (a distance)
+    widens the radial in-window test only (`rsort_layout`)."""
     ns = theta.shape[0]
     n_tt = _cdiv(ns, spec.t_theta)
     n_pt = _cdiv(ns, spec.t_phi)
@@ -187,6 +198,9 @@ def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
     d, radius, m_th, m_ph, in_window = angular_footprints(
         means, scales, alive, cam, theta, phi, r, spec, scaling_modifier
     )
+    if slack:
+        in_window = ((d - radius - slack <= r[-1]) & (d + radius + slack >= r[0])
+                     & (radius >= 0.0))
     mask = (m_th[:, :, None] & m_ph[:, None, :] & in_window[:, None, None])
     counts = mask.reshape(g, n_tt * n_pt).sum(dim=0, dtype=torch.int32)
 
@@ -210,6 +224,31 @@ def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
     word = (((((1 << b_t) | tl) << b_t | th) << b_p | pll) << b_p) | phh
     word = torch.where(valid_g, word, 0).to(torch.int32)
     return d, radius, word, valid_g, counts
+
+
+@torch.no_grad()
+def rsort_layout(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
+                 scaling_modifier: float = 1.0, slack: float = 0.0) -> RSortLayout:
+    """The frozen block layout of a reference camera `cam` (its grid
+    theta, phi, r): `slack` must cover the largest distance from `cam` to
+    any scan point the layout serves, plus the parameters' drift until the
+    next rebuild. It widens only the radial window, so more slack costs a
+    few layout rows; a Gaussian beyond it that a scan point sees raises
+    that render's overflow flag (`rsort_cull`)."""
+    ns = theta.shape[0]
+    g = means.shape[0]
+    if _padded_rows(g, spec) >= (1 << 24):
+        raise ValueError(
+            f"rsort padded rows {_padded_rows(g, spec)} >= 2^24: the padded "
+            "table's iota column (full_perm) is an f32, exact to 24 bits; shrink "
+            "max_groups or g_tile"
+        )
+    d, _, word, valid_g, _ = _cull_geometry(
+        means.detach(), scales.detach(), alive, cam, theta, phi, r, spec,
+        scaling_modifier, slack,
+    )
+    return _layout_from_geometry(d, word, valid_g, _cdiv(ns, spec.t_theta),
+                                 _cdiv(ns, spec.t_phi), spec, d_hi=r[-1])
 
 
 def _layout_from_geometry(d, word, valid_g, n_tt: int, n_pt: int,
@@ -291,6 +330,31 @@ class WidePadGather(torch.autograd.Function):
         g_pad = grad.shape[0]
         gz = torch.cat([grad[:, :ctx.n_diff], grad.new_zeros(1, ctx.n_diff)])
         return gz[torch.clamp(inv_perm, max=g_pad)], None, None, None, None
+
+
+class PadGather(torch.autograd.Function):
+    """Rows `table[full_perm]` of a (G, F) table into the padded layout
+    (slots >= G read zeros), with the inverse gather as the backward:
+    original row j gets `grad[inv_perm[j]]`, zero where inv_perm >= G_pad
+    (a row this camera culls, or one the layout has no slot for). Padding
+    slots carry index 0 and word 0: the kernels gate them out and their
+    cotangent rows are never read back."""
+
+    @staticmethod
+    def forward(ctx, table, full_perm, inv_perm):
+        g = table.shape[0]
+        ctx.save_for_backward(inv_perm)
+        full = torch.cat([table, table.new_zeros(1, table.shape[1])])
+        return full[torch.clamp(full_perm, max=g)]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv_perm,) = ctx.saved_tensors
+        gz = torch.cat([grad, grad.new_zeros(1, grad.shape[1])])
+        return gz[torch.clamp(inv_perm, max=grad.shape[0])], None, None
+
+
+pad_gather = PadGather.apply  # JAX's `fused_rsort.pad_gather`
 
 
 # --- kernels -----------------------------------------------------------------
@@ -863,11 +927,26 @@ class RSortField(torch.autograd.Function):
 
 
 def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
-                   spec: RSortSpec, gw=None) -> RSortTiles:
+                   spec: RSortSpec, gw=None, layout: Optional[RSortLayout] = None
+                   ) -> RSortTiles:
     """Layout, wide gather and work lists from per-Gaussian cull geometry
-    (the half of `rsort_cull` after `_cull_geometry`)."""
+    (the half of `rsort_cull` after `_cull_geometry`).
+
+    Without `layout` the sort builds this camera's; with one (a frozen
+    `rsort_layout`) the step sorts and scatters nothing. Rows this camera
+    culls keep their slots with word 0 and take the zero cotangent row
+    (`inv_perm` = G_pad); a row this camera sees that the layout holds no
+    slot for would be dropped, so it raises `overflowed` (the missed-slot
+    flag)."""
     g = d.shape[0]
-    layout = _layout_from_geometry(d, word, valid_g, n_tt, n_pt, spec, d_hi=r[-1])
+    g_pad = _padded_rows(g, spec)
+    missed = None
+    if layout is None:
+        layout = _layout_from_geometry(d, word, valid_g, n_tt, n_pt, spec, d_hi=r[-1])
+        inv_perm = layout.inv_perm
+    else:
+        inv_perm = torch.where(valid_g, layout.inv_perm, g_pad)
+        missed = torch.any(valid_g & (layout.inv_perm >= g_pad))
     geom = torch.stack(
         [
             word.to(torch.float32),
@@ -879,14 +958,14 @@ def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
     )
     per_row = WidePadGather.apply(
         geom.new_zeros(g, 0) if gw is None else gw, geom, layout.perm,
-        layout.src, layout.inv_perm,
+        layout.src, inv_perm,
     )
     n_gw = 0 if gw is None else gw.shape[1]
     full_perm, words, lists = _lists_from_rows(per_row.detach(), n_gw, r, n_tt,
                                                n_pt, spec)
     return RSortTiles(
         full_perm=full_perm,
-        inv_perm=layout.inv_perm,
+        inv_perm=inv_perm,
         words=words[:, None],
         counts=counts,
         fwd=lists.fwd,
@@ -895,7 +974,7 @@ def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
         tile_has_work=lists.tile_has_work,
         blk_has_work=lists.blk_has_work,
         n_groups=layout.n_groups,
-        overflowed=lists.overflowed,
+        overflowed=lists.overflowed if missed is None else lists.overflowed | missed,
         table=None if gw is None else per_row,
     )
 
@@ -913,14 +992,19 @@ def _lists_from_rows(rows, n_gw: int, r, n_tt: int, n_pt: int, spec: RSortSpec):
 
 
 def rsort_cull(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
-               scaling_modifier: float = 1.0, gw=None) -> RSortTiles:
+               scaling_modifier: float = 1.0, gw=None,
+               layout: Optional[RSortLayout] = None) -> RSortTiles:
     """Cull + schedule for one scan point.
 
     With `gw` ((G, FDIM + C) differentiable forms|weights), `tiles.table`
     holds the padded [forms | weights | word | d-lo | d-hi | iota] rows the
     field kernels read. The cull geometry itself carries no gradient.
-    Without a frozen layout every valid Gaussian has a slot, so the JAX
-    version's missed-slot overflow channel never fires and is not ported.
+    With `layout` (a frozen `rsort_layout`) the step runs no sort and no
+    layout scatter: `_cull_geometry`, the wide gather, K1 and K2. Words and
+    block intervals are this camera's, so the render is exact however
+    stale the layout; a Gaussian this camera sees that the layout holds no
+    slot for raises `overflowed` (the missed-slot flag; never with a fresh
+    layout).
     """
     ns = theta.shape[0]
     with torch.no_grad():
@@ -930,19 +1014,26 @@ def rsort_cull(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
         )
     return rsort_schedule(
         d, radius, word, valid_g, counts, r,
-        _cdiv(ns, spec.t_theta), _cdiv(ns, spec.t_phi), spec, gw,
+        _cdiv(ns, spec.t_theta), _cdiv(ns, spec.t_phi), spec, gw, layout,
     )
 
 
-def _field_table(tiles: RSortTiles, n_forms: int, c: int, who: str):
-    """The table the cull gathered, checked to be [forms | c weights | word |
-    3 geometry]: the field kernels read it, not the forms themselves."""
+def _field_table(tiles: RSortTiles, gfeat, channel_weights, who: str):
+    """The padded table the field kernels read, [forms | C weights | word |
+    3 geometry]: the one the cull gathered (`rsort_cull(..., gw=...)`), or,
+    for a cull without `gw`, forms|weights gathered into the layout here
+    (`pad_gather`) beside the words and three zero columns (the kernels
+    read forms and weights at the table's stride, not the geometry)."""
+    n_forms, c = gfeat.shape[1], channel_weights.shape[1]
     table = tiles.table
     if table is None:
-        raise ValueError(f"{who} needs tiles culled with gw=...")
+        gw_pad = pad_gather(torch.cat([gfeat, channel_weights], dim=1),
+                            tiles.full_perm, tiles.inv_perm)
+        words = tiles.words.to(gw_pad.dtype).detach()
+        return torch.cat([gw_pad, words, gw_pad.new_zeros(gw_pad.shape[0], 3)], dim=1)
     if table.shape[1] - n_forms - c - 1 != 3:
         raise ValueError(
-            f"tiles.table width {table.shape[1]} does not match "
+            f"{who}: tiles.table width {table.shape[1]} does not match "
             f"[{n_forms} forms | {c} weights | word | 3 geometry]"
         )
     return table
@@ -952,14 +1043,15 @@ def rsort_gaussian_field(gfeat, channel_weights, tiles: RSortTiles,
                          spec: RSortSpec, grid, cam):
     """Work-list-sparse field (num_r, ns, ns, C) + overflow flag.
 
-    `tiles` must come from `rsort_cull(..., gw=cat([gfeat, channel_weights]))`:
-    the field reads the table the cull gathered, not `gfeat` itself."""
+    With `tiles` from `rsort_cull(..., gw=cat([gfeat, channel_weights]))`
+    the field reads the table the cull gathered, not `gfeat` itself; from a
+    cull without `gw`, the table is gathered here (`_field_table`)."""
     num_r, ns = grid.r.shape[0], grid.theta.shape[0]
     n_tt = _cdiv(ns, spec.t_theta)
     n_pt = _cdiv(ns, spec.t_phi)
     n_ch = _cdiv(num_r, spec.t_chunk)
     c = channel_weights.shape[1]
-    table = _field_table(tiles, gfeat.shape[1], c, "rsort_gaussian_field")
+    table = _field_table(tiles, gfeat, channel_weights, "rsort_gaussian_field")
     if spec.t_chunk % spec.gate_bins:
         raise ValueError(
             f"gate_bins={spec.gate_bins} must divide t_chunk={spec.t_chunk}"
@@ -985,20 +1077,33 @@ def tune_rsort_spec(scene, camera_positions, box_points,
                     num_sampling_points: int, start: int, end: int, c: float,
                     delta_t: float, base: RSortSpec = RSortSpec(),
                     headroom: float = 1.25,
-                    scaling_modifier: float = 1.0) -> RSortSpec:
+                    scaling_modifier: float = 1.0, ref_cam=None,
+                    slack: float = 0.0) -> RSortSpec:
     """Fit `w_max` / `max_groups` to a scene by culling a few representative
-    cameras with generous probe capacities."""
+    cameras with generous probe capacities. With `ref_cam` (frozen layouts)
+    every probe is culled against one layout built from `ref_cam` with
+    `slack` at the probe capacities, so the fitted `w_max` holds the looser
+    blocks a frozen layout costs at the scan's corners."""
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 
     probe = probe_spec(base, scene.capacity, num_sampling_points, end - start)
     dev = scene.means.device
     cams = torch.as_tensor(camera_positions, dtype=torch.float32, device=dev)
+    layout = None
+    if ref_cam is not None:
+        cam0 = torch.as_tensor(ref_cam, dtype=torch.float32, device=dev)
+        grid0 = shell_grid(cam0, box_points, num_sampling_points, start, end, c,
+                           delta_t)
+        layout = rsort_layout(scene.means, scene.scales, scene.alive, cam0,
+                              grid0.theta, grid0.phi, grid0.r, probe,
+                              scaling_modifier, slack)
     max_items, max_groups_obs = 1, 1
     for cam in cams.reshape(-1, 3):
         grid = shell_grid(cam, box_points, num_sampling_points, start, end, c,
                           delta_t)
         t = rsort_cull(scene.means, scene.scales, scene.alive, cam,
-                       grid.theta, grid.phi, grid.r, probe, scaling_modifier)
+                       grid.theta, grid.phi, grid.r, probe, scaling_modifier,
+                       layout=layout)
         max_items = max(max_items, int(t.n_items[0]))
         max_groups_obs = max(max_groups_obs, int(t.n_groups))
     return base._replace(

@@ -293,6 +293,17 @@ def mahalanobis_matmul(point_feats, gauss_feats):
     return torch.clamp(point_feats @ gauss_feats.transpose(-1, -2), min=0.0)
 
 
+def mahalanobis_direct(pts, means, scales, quats):
+    """(A, 3) points against (N, 3) means, (N, 3) scales and (N, 4)
+    quaternions -> (A, N) squared Mahalanobis distances in the broadcast
+    (A, N, 3) difference form (the reference's hot loop): exact where the
+    quadratic form cancels, and memory-heavy."""
+    rot = quat_to_rotmat(quats)  # (N, 3, 3)
+    diff = pts[:, None, :] - means[None, :, :]  # (A, N, 3)
+    local = torch.einsum("nij,anj->ani", rot, diff)
+    return torch.sum((local / scales[None, :, :]) ** 2, dim=-1)
+
+
 def build_covariance(scales, quats):
     """(N, 3, 3) covariances L L^T with L = R diag(s), from (N, 3)
     post-activation scales and (N, 4) quaternions."""

@@ -2,15 +2,19 @@
 
 Port of `nlos_gaussian_renderer_tpu/ops/render.py` for the `dense`,
 `analytic`, `pallas`, `pallas_rsort` and `pallas_analytic` backends, with no
-occlusion or aggregate occlusion (`netf` / `nlos-neus`). For one scan point
-it renders the time-of-flight histogram of the Gaussian scene by
-integrating the field over spherical shells: field -> * sin(theta)/r^2 ->
-* volume_y^2 -> sum over angles -> * dtheta * dphi.
+occlusion, aggregate occlusion or per_gaussian occlusion (`netf` /
+`nlos-neus`). For one scan point it renders the time-of-flight histogram of
+the Gaussian scene by integrating the field over spherical shells: field ->
+* sin(theta)/r^2 -> * volume_y^2 -> sum over angles -> * dtheta * dphi.
 
-The dense field is exp(-0.5 * X10 @ G10^T) @ weights, optionally chunked
-over Gaussians with activation checkpointing (`gauss_chunk`), which is the
-reference the kernels are held to at scale. Aggregate transmittance is
-exp(-cumsum) along the radius axis.
+The dense field is exp(-0.5 * X10 @ G10^T) @ weights (or the broadcast
+difference form, `pdf_impl='direct'`), optionally chunked over Gaussians
+with activation checkpointing (`gauss_chunk`), which is the reference the
+kernels are held to at scale. Aggregate transmittance is exp(-cumsum) along
+the radius axis. per_gaussian occlusion attenuates each Gaussian by its own
+accumulated density, so it needs the un-reduced (sample, Gaussian) matrix:
+every backend but `dense` renders it in Gaussian chunks
+(`field_response_per_gaussian_chunked`), never through the kernels.
 """
 
 from __future__ import annotations
@@ -56,6 +60,9 @@ class RenderSettings(NamedTuple):
     tile kernels K7/K8, capacity `tile_spec.k_max`), 'pallas_rsort' and
     'pallas_analytic' (the work-list kernels, capacities in `rsort_spec`).
     The JAX package's 'pallas_dsort' is not ported yet and raises.
+    `pdf_impl` picks the dense field's Mahalanobis form: 'matmul' (the
+    quadratic form against the point monomials) or 'direct' (the broadcast
+    (A, N, 3) difference form, `math.mahalanobis_direct`).
     """
 
     num_sampling_points: int
@@ -63,9 +70,10 @@ class RenderSettings(NamedTuple):
     end: int
     occlusion: bool = False
     rendering_type: str = "netf"  # 'netf' | 'nlos-neus'
-    occlusion_mode: str = "aggregate"  # 'aggregate' ('per_gaussian' not ported)
+    occlusion_mode: str = "aggregate"  # 'aggregate' | 'per_gaussian'
     scaling_modifier: float = 1.0
     apply_volume_y2_factor: bool = True
+    pdf_impl: str = "matmul"  # 'matmul' | 'direct'
     backend: str = "dense"
     tile_spec: TileSpec = TileSpec()
     rsort_spec: RSortSpec = RSortSpec()
@@ -119,9 +127,17 @@ def view_albedo(scene: GaussianScene, camera_pos, active_sh_degree):
 
 
 def gaussian_pdf(scene: GaussianScene, points, settings: RenderSettings):
-    """(A, N) unnormalized PDFs exp(-0.5 * maha) at (A, 3) points."""
-    gfeat = scene.quadratic_form(settings.scaling_modifier)
-    maha = gmath.mahalanobis_matmul(gmath.point_monomials(points), gfeat)
+    """(A, N) unnormalized PDFs exp(-0.5 * maha) at (A, 3) points, maha by
+    the settings' `pdf_impl`."""
+    mod = settings.scaling_modifier
+    if settings.pdf_impl == "matmul":
+        gfeat = scene.quadratic_form(mod)
+        maha = gmath.mahalanobis_matmul(gmath.point_monomials(points), gfeat)
+    elif settings.pdf_impl == "direct":
+        maha = gmath.mahalanobis_direct(points, scene.means, scene.scales * mod,
+                                        scene.rotations)
+    else:
+        raise ValueError(f"pdf_impl={settings.pdf_impl!r}")
     return torch.exp(-0.5 * maha)
 
 
@@ -133,22 +149,34 @@ def _pdf_weighted(xfeat, gfeat, weights):
     return torch.exp(-0.5 * gmath.mahalanobis_matmul(xfeat, gfeat)) @ weights
 
 
+def _direct_weighted(points, means, scales, quats, weights):
+    return torch.exp(-0.5 * gmath.mahalanobis_direct(points, means, scales, quats)) @ weights
+
+
+def _gauss_chunked(fn, shared, per_gauss, gauss_chunk: Optional[int]):
+    """sum over Gaussian chunks of fn(*shared, *chunk of each per_gauss
+    tensor); each chunk is recomputed in the backward (activation
+    checkpointing), so memory stays at one chunk's temporaries."""
+    n = per_gauss[0].shape[0]
+    if gauss_chunk is None or gauss_chunk >= n:
+        return fn(*shared, *per_gauss)
+    out = None
+    for i in range(0, n, gauss_chunk):
+        part_args = tuple(t[i:i + gauss_chunk] for t in per_gauss)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in part_args):
+            part = checkpoint(fn, *shared, *part_args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            part = fn(*shared, *part_args)
+        out = part if out is None else out + part
+    return out
+
+
 def weighted_pdf_sums(xfeat, gfeat, weights, gauss_chunk: Optional[int] = None):
     """(A, C) = sum_n pdf[a, n] * weights[n, c]. With `gauss_chunk`, the sum
     runs over Gaussian chunks of that size, each recomputed in the backward
     (activation checkpointing), so memory stays at one (A, chunk) block."""
-    n = gfeat.shape[0]
-    if gauss_chunk is None or gauss_chunk >= n:
-        return _pdf_weighted(xfeat, gfeat, weights)
-    out = None
-    for i in range(0, n, gauss_chunk):
-        gf, w = gfeat[i:i + gauss_chunk], weights[i:i + gauss_chunk]
-        if torch.is_grad_enabled() and (gf.requires_grad or w.requires_grad):
-            part = checkpoint(_pdf_weighted, xfeat, gf, w, use_reentrant=False)
-        else:
-            part = _pdf_weighted(xfeat, gf, w)
-        out = part if out is None else out + part
-    return out
+    return _gauss_chunked(_pdf_weighted, (xfeat,), (gfeat, weights), gauss_chunk)
 
 
 def channel_weights(scene, camera_pos, active_sh_degree, settings):
@@ -159,8 +187,11 @@ def channel_weights(scene, camera_pos, active_sh_degree, settings):
     if not settings.occlusion:
         return (op * rho)[:, None]
     if settings.occlusion_mode != "aggregate":
+        # per_gaussian needs the un-reduced (sample, Gaussian) matrix: no
+        # channel sum carries it (`render_transient` routes it around the
+        # kernels, to `field_response_per_gaussian_chunked`).
         raise NotImplementedError(
-            f"occlusion_mode={settings.occlusion_mode!r} is not ported"
+            f"occlusion_mode={settings.occlusion_mode!r} has no channel weights"
         )
     return torch.stack([op, op * rho], dim=-1)
 
@@ -186,25 +217,108 @@ def _composite(both, c, delta_t, settings: RenderSettings):
     return out.reshape(-1)
 
 
+def _per_gaussian_response(density, rho, cdt, rendering_type: str):
+    """(num_r, ns^2) response of per_gaussian occlusion from the (num_r,
+    ns^2, N) densities pdf * op: each Gaussian attenuated by its own
+    accumulated density along r, in the reference's arithmetic (the 1e-7
+    inside the log of its cumprod, `gaussian_model.py:316-339`)."""
+    if rendering_type == "netf":
+        log_occ = torch.log(torch.exp(-density * cdt) + 1e-7)
+        trans = torch.exp(_exclusive_cumsum(log_occ, 0))
+        return torch.sum(density * trans * rho, dim=-1) * cdt
+    if rendering_type == "nlos-neus":
+        alpha = 1.0 - torch.exp(-density * cdt)
+        trans = torch.exp(_exclusive_cumsum(torch.log(1.0 - alpha + 1e-7), 0))
+        return torch.sum(alpha * trans * rho, dim=-1)
+    raise ValueError(rendering_type)
+
+
+def _is_per_gaussian(settings: RenderSettings) -> bool:
+    if settings.occlusion and settings.occlusion_mode not in ("aggregate", "per_gaussian"):
+        raise ValueError(settings.occlusion_mode)
+    return settings.occlusion and settings.occlusion_mode == "per_gaussian"
+
+
 def field_response(scene: GaussianScene, points, camera_pos, c, delta_t,
                    active_sh_degree, settings: RenderSettings,
                    gauss_chunk: Optional[int] = None):
     """(A,) rho-weighted emission at (A, 3) points, A = num_r * ns^2:
     no occlusion: sum_g pdf * op * rho; aggregate netf:
     (sum pdf*op*rho) * T * c*dt with T = exp(-c*dt * excl-cumsum_r(sum pdf*op));
-    aggregate nlos-neus: the alpha-compositing analogue."""
+    aggregate nlos-neus: the alpha-compositing analogue; per_gaussian: the
+    same with each Gaussian's own transmittance (`_per_gaussian_response`),
+    on the whole (A, N) matrix, or with `gauss_chunk` in Gaussian chunks
+    (`field_response_per_gaussian_chunked`)."""
+    if _is_per_gaussian(settings):
+        if gauss_chunk is not None:
+            return field_response_per_gaussian_chunked(
+                scene, points, camera_pos, c, delta_t, active_sh_degree, settings,
+                gauss_chunk)
+        ns2 = settings.num_sampling_points**2
+        density = (gaussian_pdf(scene, points, settings) * scene.opacities[:, 0]
+                   ).reshape(settings.num_bins, ns2, -1)
+        rho = view_albedo(scene, camera_pos, active_sh_degree)
+        return _per_gaussian_response(density, rho, c * delta_t,
+                                      settings.rendering_type).reshape(-1)
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
-    gfeat = scene.quadratic_form(settings.scaling_modifier)
-    both = weighted_pdf_sums(gmath.point_monomials(points), gfeat, w, gauss_chunk)
+    mod = settings.scaling_modifier
+    if settings.pdf_impl == "matmul":
+        both = weighted_pdf_sums(gmath.point_monomials(points), scene.quadratic_form(mod),
+                                 w, gauss_chunk)
+    elif settings.pdf_impl == "direct":
+        both = _gauss_chunked(_direct_weighted, (points,),
+                              (scene.means, scene.scales * mod, scene.rotations, w),
+                              gauss_chunk)
+    else:
+        raise ValueError(f"pdf_impl={settings.pdf_impl!r}")
     return _composite(both, c, delta_t, settings)
 
 
+def field_response_per_gaussian_chunked(scene: GaussianScene, points, camera_pos, c,
+                                        delta_t, active_sh_degree,
+                                        settings: RenderSettings,
+                                        gauss_chunk: Optional[int] = None):
+    """per_gaussian occlusion's (A,) response in Gaussian chunks: each
+    Gaussian's transmittance depends on its own density only, so the sum
+    over Gaussians chunks exactly. Memory holds one chunk's (A, chunk)
+    temporaries: each chunk is recomputed in the backward (activation
+    checkpointing). The default chunk is JAX's, max(64, 80e6 // (4 A));
+    the last chunk wraps around to row 0 with zero opacity. The quadratic
+    form is always the matmul one, as in JAX."""
+    ns2 = settings.num_sampling_points**2
+    num_r = settings.num_bins
+    a = num_r * ns2
+    if gauss_chunk is None:
+        gauss_chunk = max(64, int(80e6 // max(4 * a, 1)))
+    n = scene.capacity
+    chunk = min(gauss_chunk, n)
+    pad = (-n) % chunk
+    dev = scene.means.device
+    idx = torch.arange(n + pad, device=dev) % n
+    valid = (torch.arange(n + pad, device=dev) < n).to(scene.means.dtype)
+    gfeat = scene.quadratic_form(settings.scaling_modifier)[idx]
+    op = scene.opacities[:, 0][idx] * valid
+    rho = view_albedo(scene, camera_pos, active_sh_degree)[idx]
+    xfeat = gmath.point_monomials(points)
+    cdt = c * delta_t
+
+    def body(xf, gf, o, rh):
+        maha = gmath.mahalanobis_matmul(xf, gf)  # (A, chunk)
+        density = (torch.exp(-0.5 * maha) * o[None, :]).reshape(num_r, ns2, -1)
+        return _per_gaussian_response(density, rh, cdt, settings.rendering_type)
+
+    return _gauss_chunked(body, (xfeat,), (gfeat, op, rho), chunk).reshape(-1)
+
+
 def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
-                          c, delta_t, active_sh_degree, settings: RenderSettings):
+                          c, delta_t, active_sh_degree, settings: RenderSettings,
+                          layout=None):
     """`field_response` through the kernels of the settings' backend:
     'pallas' (tile cull, K7/K8), 'pallas_rsort' (rsort cull, sampled field)
-    or 'pallas_analytic' (rsort cull, exact per-bin integrals). Returns
-    ((A,) response, overflow flag)."""
+    or 'pallas_analytic' (rsort cull, exact per-bin integrals), without
+    occlusion or with aggregate occlusion. `layout` (an
+    `fused_rsort.RSortLayout`, rsort family only) replaces the cull's sort
+    with a frozen block layout. Returns ((A,) response, overflow flag)."""
     if settings.backend not in KERNEL_BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
@@ -220,7 +334,7 @@ def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
     spec = settings.rsort_spec
     tiles = rsort_cull(
         scene.means, scene.scales, scene.alive, camera_pos, grid.theta,
-        grid.phi, grid.r, spec, settings.scaling_modifier,
+        grid.phi, grid.r, spec, settings.scaling_modifier, layout=layout,
         gw=torch.cat([gfeat, w], dim=1),
     )
     if settings.backend == "pallas_analytic":
@@ -273,13 +387,17 @@ def check_culling_capacity(scene: GaussianScene, camera_pos, box_points, c,
 def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
                      volume_position, active_sh_degree,
                      settings: RenderSettings,
-                     gauss_chunk: Optional[int] = None):
+                     gauss_chunk: Optional[int] = None, layout=None):
     """Render (transient (num_r, ns^2), histogram (num_r,), overflow ()).
 
     `overflow` is True when a kernel backend's static capacity saturated (a
-    tile list or the rsort work list; contributions were dropped); it is
-    constant False on the dense and analytic backends.
-    `gauss_chunk` chunks their sum over Gaussians.
+    tile list or the rsort work list; contributions were dropped, or a
+    frozen `layout` had no slot for a Gaussian this camera sees); it is
+    constant False on the dense and analytic backends and for per_gaussian
+    occlusion, which every backend but 'dense' renders in Gaussian chunks
+    (`field_response_per_gaussian_chunked`). `gauss_chunk` chunks the dense,
+    analytic and per_gaussian sums over Gaussians; `layout` applies to the
+    rsort family.
     """
     if settings.backend not in BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
@@ -288,9 +406,16 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
         settings.end, c, delta_t,
     )
     overflow = torch.zeros((), dtype=torch.bool, device=camera_pos.device)
-    if settings.backend in KERNEL_BACKENDS:
+    per_gaussian = _is_per_gaussian(settings)
+    if per_gaussian and settings.backend != "dense":
+        out = field_response_per_gaussian_chunked(
+            scene, grid.points.reshape(-1, 3), camera_pos, c, delta_t,
+            active_sh_degree, settings, gauss_chunk,
+        )
+    elif settings.backend in KERNEL_BACKENDS:
         out, overflow = field_response_pallas(
-            scene, grid, camera_pos, c, delta_t, active_sh_degree, settings
+            scene, grid, camera_pos, c, delta_t, active_sh_degree, settings,
+            layout=layout,
         )
     elif settings.backend == "analytic":
         out = analytic_field_response(

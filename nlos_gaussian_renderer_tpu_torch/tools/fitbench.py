@@ -47,10 +47,24 @@ densification with SGLD noise (`DENSIFY`), from 50,000 of 100,000 slots
      starved caps against fitted caps;
   9. `pallas_analytic` densified through the chunked `fit` (OTHER_ITERS).
 
+`run_frozen` measures `Config(frozen_layout=True)` (each chunk renders
+through one block layout built at its entry from `train.layout_reference`):
+
+ 10. `fit` on the chunked path (ITERS, chunks of 50: per chunk one replay
+     of the layout's graph, then 50 of the step's) with its re-tunes, caps
+     and peak device memory;
+ 11. one chunk from its graphs against the same steps eagerly through one
+     layout built eagerly, twice (as 3), timed and profiled, beside the
+     same for the chunk without a layout, in the same process; each graph
+     replayed alone under the profiler, its sort kernels counted
+     (`sort_events`): the step's graph with a layout launches none;
+ 12. a densified frozen-layout `fit` (DENSIFY, OTHER_ITERS): `fit` takes
+     the per-step path, whose steps use no layout.
+
 The card only (CUDA graphs); it prints one JSON line, the numbers
-`chip_smoke.py` gates and records. `--pallas-step` measures `pallas`'s
-chunk alone (`pallas_step`): run as a file with another tree first on
-PYTHONPATH, it compares two trees' steps,
+`chip_smoke.py` gates and records. `--frozen` runs `run_frozen` alone.
+`--pallas-step` measures `pallas`'s chunk alone (`pallas_step`): run as a
+file with another tree first on PYTHONPATH, it compares two trees' steps,
 
     PYTHONPATH=<tree> python nlos_gaussian_renderer_tpu_torch/tools/fitbench.py --pallas-step
 """
@@ -153,17 +167,22 @@ def replay_vs_eager(cfg, optim, data, dev, k=50, timing=True):
     state = train.create_train_state(scene, tx)
     consts = (box, data.c, data.deltaT, torch.as_tensor(data.volume_position, device=dev))
     cams, tgts = _batches(cfg, data, k, dev)
+    ref_cam, slack = train.layout_reference(data) if cfg.frozen_layout else (None, 0.0)
     chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree, seed=cfg.rng,
-                                          densify_seed=cfg.rng + 1)
+                                          densify_seed=cfg.rng + 1, ref_cam=ref_cam,
+                                          layout_slack=slack)
     step = train.make_train_step(settings, optim, cfg.sh_degree, seed=cfg.rng)
     s0 = train.snapshot_state(state)
     step0 = 1  # a fresh state's counter
     events = [i for i in range(k) if train.densify_fires(optim, step0 + i + 1)]
 
     def eager():
+        # The chunk's layout (None without ref_cam), built eagerly from the
+        # entering state, then the steps through it.
+        layout = chunk.layout(state, *consts[:3])
         auxs = []
         for i in range(k):
-            auxs.append(step(state, cams[i], tgts[i], *consts))
+            auxs.append(step(state, cams[i], tgts[i], *consts, layout=layout))
             if i in events:
                 densify_step(state.scene, state.opt_state, cfg.rng + 1, state.step,
                              optim.cap_max)
@@ -190,6 +209,13 @@ def replay_vs_eager(cfg, optim, data, dev, k=50, timing=True):
     out["capture_s"], out["instantiate_s"] = chunk.capture_s, chunk.instantiate_s
     out["capture_log"] = list(chunk.capture_log)
     out["launches_per_replay"] = dict(chunk.launches_per_replay)
+    # The same chunk once more from the snapshot (the overflow gate's
+    # replay): the layout is rebuilt from the restored state.
+    train.restore_state(state, s0)
+    aux_2 = chunk(state, cams, tgts, *consts, step0=step0)
+    _, equal_again = _diffs(train.snapshot_state(state), replayed)
+    out["replay_again_equals"] = equal_again and bool(torch.equal(aux_2.loss, aux_r.loss))
+    out["layout_replays"] = chunk.layout_replays
     if not timing:
         return out
 
@@ -214,6 +240,36 @@ def replay_vs_eager(cfg, optim, data, dev, k=50, timing=True):
     cuda_build.reset_launch_counts()
     out["eager_profile"] = profile_chunk(eager, k)
     out["eager_launches"] = cuda_build.launch_counts()
+    train.restore_state(state, s0)
+    out["graphs"] = graph_events(chunk)
+    out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    return out
+
+
+def is_sort_kernel(name: str) -> bool:
+    """A device event of a sort (torch.sort's radix-sort kernels, any
+    kernel named for a sort); `searchsorted` is a search and K3/K4
+    (`rsort_*`) are the field kernels, not sorts."""
+    return "sort" in name.lower().replace("searchsorted", "").replace("rsort_", "")
+
+
+def graph_events(chunk) -> dict:
+    """Each of the chunk's graphs replayed once alone under the profiler
+    (the step's with its counter at 0): device events, sort events and
+    their names. The caller restores the state after (a replayed step
+    updates it)."""
+    out = {}
+    for name, graph in (("layout", chunk._lgraph), ("step", chunk._graph),
+                        ("densify", chunk._dgraph)):
+        if graph is None:
+            continue
+        chunk._i.zero_()
+        prof = profile_chunk(graph.replay, 1)
+        sorts = {n: c for n, (c, _) in prof["by_name"].items() if is_sort_kernel(n)}
+        out[name] = dict(events=prof["events_per_step"], device_ms=prof["device_ms_per_step"],
+                         sort_events=sum(sorts.values()),
+                         sort_kernels=[n[:80] for n in sorts])
+    chunk._i.zero_()
     return out
 
 
@@ -251,7 +307,10 @@ def profile_chunk(run, k):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return dict(device_ms_per_step=sum(ms for _, ms in by_name.values()) / k,
                 events_per_step=n_events / k, kernels=per_kernel,
-                top=[(n[:80], c / k, ms / k) for n, (c, ms) in top])
+                top=[(n[:80], c / k, ms / k) for n, (c, ms) in top],
+                sort_events_per_step=sum(c for n, (c, _) in by_name.items()
+                                         if is_sort_kernel(n)) / k,
+                by_name=by_name)
 
 
 @contextlib.contextmanager
@@ -402,6 +461,33 @@ def run_densified(device="cuda") -> dict:
     return out
 
 
+def run_frozen(device="cuda") -> dict:
+    """`fit` and its chunk with `frozen_layout=True` on the artifact at 100k
+    (`pallas_rsort`), beside the chunk without a layout (10-12 above)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("fitbench captures CUDA graphs: it runs on the card only")
+    data = load_zaragoza256_data(os.path.normpath(ARTIFACT))
+    optim = OptimizationParams()
+    cfg = config(data, frozen_layout=True)
+    ref_cam, slack = train.layout_reference(data)
+    out = dict(iters=ITERS, ref_cam=ref_cam.tolist(), slack=slack)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, sec, chunk_s, counts = timed_fit(cfg, optim, data, ITERS, dev)
+    out["chunked"] = _fit_summary(res, sec, chunk_s, counts, ITERS)
+    out["chunked"]["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    del res
+    for name, c in (("replay", cfg), ("unlayouted", config(data))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[name] = replay_vs_eager(c, optim, data, dev)
+    dens = OptimizationParams(**DENSIFY)
+    res, sec, _, counts = timed_fit(config(data, gaussians=DENSIFY_GAUSSIANS,
+                                           frozen_layout=True), dens, data, OTHER_ITERS, dev,
+                                    log_every=50)
+    out["densified"] = _fit_summary(res, sec, [], counts, OTHER_ITERS)
+    return out
+
+
 def pallas_step(device="cuda") -> dict:
     """`pallas`'s chunk of 50 on the artifact at 100k: replay vs eager (and
     eager vs eager), each timed between CUDA events and under the profiler
@@ -420,6 +506,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if "--pallas-step" in sys.argv[1:]:
         out = pallas_step()
+    elif "--frozen" in sys.argv[1:]:
+        out = run_frozen()
     else:
         out = run()
         out["densified"] = run_densified()

@@ -15,8 +15,11 @@ Port of `nlos_gaussian_renderer_tpu/train.py`:
     targets. On the card one step is captured into a CUDA graph and
     replayed K times (JAX's `lax.scan` chunk: no host read inside the
     chunk), and with `densify_seed` one `densify_step` into a second graph,
-    replayed after the steps whose post-update counter densifies; on the
-    CPU the same calls run in a loop;
+    replayed after the steps whose post-update counter densifies; with
+    `ref_cam` (frozen layouts, the rsort family) the chunk's block layout
+    is built from the entering state by a third graph, replayed once before
+    the steps, which then sort nothing; on the CPU the same calls run in a
+    loop;
   - `fit_culling_capacity`: the kernel backends' static capacities fitted
     to a scene on probe scan points;
   - `prepare_training` and `fit`, the training entry point: the scan-point
@@ -30,9 +33,11 @@ PyTorch updates in place where JAX returns a new state, so the state to
 replay from is a device-to-device snapshot (`snapshot_state`): the port's
 counterpart of JAX's `donate=False`. The SGLD noise and the donor draws
 are keyed on `(seed, step)` with the step read from its device tensor
-(`ops/random.py`), so a replay draws what the first run drew. Frozen
-layouts, `pallas_dsort` and per_gaussian occlusion are not ported: they
-raise `NotImplementedError` naming their ROADMAP.md item.
+(`ops/random.py`), so a replay draws what the first run drew.
+`cfg.frozen_layout` trains the rsort family's chunks on one layout each,
+from `layout_reference(data)`; per_gaussian occlusion renders in Gaussian
+chunks on every backend but 'dense'. `pallas_dsort` is not ported: it
+raises `NotImplementedError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from nlos_gaussian_renderer_tpu_torch.models.scene import (
 from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
 from nlos_gaussian_renderer_tpu_torch.ops import random as prng
-from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import tune_rsort_spec
+from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import rsort_layout, tune_rsort_spec
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     KERNEL_BACKENDS,
     RSORT_FAMILY,
@@ -67,6 +72,7 @@ from nlos_gaussian_renderer_tpu_torch.ops.render import (
     mse_loss,
     render_transient,
 )
+from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 from nlos_gaussian_renderer_tpu_torch.ops.schedule import expon_lr_schedule_tensor
 
 # The six Adam groups in optax's label order, and each group's scene field.
@@ -85,12 +91,8 @@ def not_ported(what: str, item: int):
 
 def check_ported(cfg: Config, optim: OptimizationParams) -> None:
     """Raise for an option `fit` does not have yet."""
-    if cfg.frozen_layout:
-        raise not_ported("the frozen layout (frozen_layout)", 8)
     if cfg.renderer == "pallas_dsort":
         raise not_ported("backend 'pallas_dsort'", 9)
-    if cfg.occlusion and cfg.occlusion_mode == "per_gaussian":
-        raise not_ported("per_gaussian occlusion", 7)
 
 
 # --- optimizer -------------------------------------------------------------------
@@ -295,14 +297,16 @@ class StepAux(NamedTuple):
 
 def batched_loss_fn(scene: GaussianScene, cams, targets, box_points, c,
                     delta_t, volume_position, active_sh_degree,
-                    settings: RenderSettings, optim: OptimizationParams):
+                    settings: RenderSettings, optim: OptimizationParams,
+                    layout=None):
     """Mean MSE over the (B, 3) scan points (one render each) plus the
-    alive-masked regularizers. Returns (loss, StepAux)."""
+    alive-masked regularizers; every render through `layout` (a frozen
+    rsort layout) when given. Returns (loss, StepAux)."""
     losses, eqs, hists, overflows = [], [], [], []
     for cam, target in zip(cams, targets):
         _, hist, overflow = render_transient(
             scene, cam, box_points, c, delta_t, volume_position,
-            active_sh_degree, settings,
+            active_sh_degree, settings, layout=layout,
         )
         loss, eq = mse_loss(hist, target)
         losses.append(loss)
@@ -350,7 +354,8 @@ def sgld_position_noise(scene: GaussianScene, eps: torch.Tensor, lr: torch.Tenso
 def make_train_step(settings: RenderSettings, optim: OptimizationParams,
                     max_sh_degree: int, sh_anneal_interval: int = 1000, seed: int = 0):
     """step(state, cams (B, 3), targets (B, num_r), box_points, c, delta_t,
-    volume_position) -> StepAux, updating `state` in place.
+    volume_position, layout=None) -> StepAux, updating `state` in place
+    (`layout`: a frozen rsort layout the renders use, as in JAX).
 
     The update is always applied; `StepAux.overflow` says on the device
     whether a capacity saturated, and `fit` replays from a snapshot when it
@@ -361,6 +366,8 @@ def make_train_step(settings: RenderSettings, optim: OptimizationParams,
     schedule at the pre-update step counter (not Adam's count), with normals
     keyed on (seed, step) (`ops.random.normal`; JAX keys
     fold_in(PRNGKey(seed), step))."""
+    if settings.backend == "pallas_dsort":
+        raise not_ported("backend 'pallas_dsort'", 9)
     sgld_lr = expon_lr_schedule_tensor(
         lr_init=optim.position_lr_init,
         lr_final=optim.position_lr_final,
@@ -369,11 +376,11 @@ def make_train_step(settings: RenderSettings, optim: OptimizationParams,
     ) if optim.sgld_noise else None
 
     def train_step(state: TrainState, cams, targets, box_points, c, delta_t,
-                   volume_position) -> StepAux:
+                   volume_position, layout=None) -> StepAux:
         params = group_params(state.scene)
         loss, aux = batched_loss_fn(
             state.scene, cams, targets, box_points, c, delta_t,
-            volume_position, state.active_sh_degree, settings, optim,
+            volume_position, state.active_sh_degree, settings, optim, layout,
         )
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
@@ -425,6 +432,20 @@ def densify_fires(optim: OptimizationParams, cur: int) -> bool:
             and cur % optim.densification_interval == 0)
 
 
+def chunk_layout(settings: RenderSettings, state: TrainState, ref_cam, layout_slack: float,
+                 box_points, c, delta_t):
+    """The frozen block layout a chunk's steps share (JAX's `multi`): built
+    from the state as it enters the chunk, from the reference camera
+    `ref_cam` (a (3,) tensor on the state's device) with `layout_slack`, at
+    the settings' rsort capacities."""
+    grid0 = shell_grid(ref_cam, box_points, settings.num_sampling_points, settings.start,
+                       settings.end, c, delta_t)
+    sc = state.scene
+    return rsort_layout(sc.means, sc.scales, sc.alive, ref_cam, grid0.theta, grid0.phi,
+                        grid0.r, settings.rsort_spec, settings.scaling_modifier,
+                        slack=layout_slack)
+
+
 class ScannedTrainStep:
     """K train steps per call (`make_scanned_train_step`).
 
@@ -449,26 +470,51 @@ class ScannedTrainStep:
     replayed there; its donors are keyed on the device step counter, so a
     replay of the chunk draws what the first run drew.
 
-    Statistics: `captures`, `replays`, `densify_replays`, of every capture
-    `capture_log` (step graph and densify graph seconds), and of the last
-    `capture_s`, `instantiate_s` (from the log) and `launches_per_replay`
-    ({kernel: launches a replay of the step's graph})."""
+    With `ref_cam` (and a backend of the rsort family) every call builds
+    one frozen layout (`chunk_layout`) from the state as it enters, and its
+    K steps render through it (JAX's `multi`). On the card the build (sort,
+    group search, slot scatter) is a third graph, replayed once before the
+    step replays into static layout buffers that the step's graph reads:
+    the step's graph sorts nothing, and a call the overflow gate repeats
+    from its snapshot rebuilds the layout from the restored state. The
+    layout buffers belong to the chunk and are captured with its step.
+
+    Statistics: `captures`, `replays`, `densify_replays`, `layout_replays`
+    (layouts built), of every capture `capture_log` (step, densify and
+    layout graph seconds), and of the last `capture_s`, `instantiate_s`
+    (from the log) and `launches_per_replay` ({kernel: launches a replay
+    of the step's graph})."""
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
                  max_sh_degree: int, sh_anneal_interval: int = 1000, seed: int = 0,
-                 densify_seed: Optional[int] = None):
+                 densify_seed: Optional[int] = None, ref_cam=None,
+                 layout_slack: float = 0.0):
         self.settings = settings
         self._optim = optim
         self._step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval,
                                      seed)
         self.densify_seed = densify_seed if optim.mcmc_densification_flag else None
-        self._graph = self._dgraph = None
+        self.ref_cam = (None if ref_cam is None or settings.backend not in RSORT_FAMILY
+                        else np.asarray(ref_cam, np.float32).reshape(3))
+        self.layout_slack = layout_slack
+        self._graph = self._dgraph = self._lgraph = None
+        self._layout = None
         self._key = None
         self.captures = 0
         self.replays = 0
         self.densify_replays = 0
+        self.layout_replays = 0
         self.capture_log = []
         self.launches_per_replay = {}
+
+    def layout(self, state: TrainState, box_points, c, delta_t):
+        """The layout a call from `state` builds (None without `ref_cam`)."""
+        if self.ref_cam is None:
+            return None
+        ref = self.ref_cam
+        cam = gmath.device_constant(f"ref_cam {ref.tolist()}", lambda: ref, box_points.device)
+        return chunk_layout(self.settings, state, cam, self.layout_slack, box_points, c,
+                            delta_t)
 
     @property
     def capture_s(self) -> Optional[float]:
@@ -495,10 +541,12 @@ class ScannedTrainStep:
         k = cams_k.shape[0]
         fires = self._fires(step0, k)
         if cams_k.device.type == "cpu":
+            layout = self.layout(state, box_points, c, delta_t)
+            self.layout_replays += layout is not None
             auxs = []
             for i in range(k):
                 auxs.append(self._step(state, cams_k[i], targets_k[i], box_points, c,
-                                       delta_t, volume_position))
+                                       delta_t, volume_position, layout))
                 if fires[i]:
                     self._densify(state)
             self.densify_replays += sum(fires)
@@ -517,6 +565,9 @@ class ScannedTrainStep:
         self._i.zero_()
         self._of.zero_()
         with sync_errors():
+            if self._lgraph is not None:
+                self._lgraph.replay()
+                self.layout_replays += 1
             for i in range(k):
                 self._graph.replay()
                 if fires[i]:
@@ -530,7 +581,8 @@ class ScannedTrainStep:
     def _body(self, state, box_points, c, delta_t, volume_position):
         cams = self._cams.index_select(0, self._i)[0]
         targets = self._targets.index_select(0, self._i)[0]
-        aux = self._step(state, cams, targets, box_points, c, delta_t, volume_position)
+        aux = self._step(state, cams, targets, box_points, c, delta_t, volume_position,
+                         self._layout)
         with torch.no_grad():
             self._loss.index_copy_(0, self._i, aux.loss.reshape(1))
             self._eq.index_copy_(0, self._i, aux.equal_loss.reshape(1))
@@ -538,9 +590,13 @@ class ScannedTrainStep:
             self._of.logical_or_(aux.overflow)
             self._i.add_(1)
 
+    def _build_layout(self, state, box_points, c, delta_t):
+        self._layout = self.layout(state, box_points, c, delta_t)
+
     def _capture(self, state, cams_k, targets_k, box_points, c, delta_t,
                  volume_position):
-        self._graph = self._dgraph = None  # release the last graphs' pools first
+        # Release the last graphs' pools (and layout buffers) first.
+        self._graph = self._dgraph = self._lgraph = self._layout = None
         k = cams_k.shape[0]
         dev = cams_k.device
         self._cams = cams_k.clone()
@@ -550,9 +606,19 @@ class ScannedTrainStep:
         self._loss = torch.zeros(k, dtype=targets_k.dtype, device=dev)
         self._eq = torch.zeros(k, dtype=targets_k.dtype, device=dev)
         self._pred = torch.zeros(targets_k.shape, dtype=targets_k.dtype, device=dev)
+        log = {}
+        if self.ref_cam is not None:
+            # The layout graph first: its output tensors are the static
+            # buffers the step's graph reads. A replay fills them before the
+            # step's warm-up and capture read them.
+            self._lgraph, l_cap, l_inst, _ = _capture_graph(
+                lambda: self._build_layout(state, box_points, c, delta_t), state, dev)
+            with sync_errors():
+                self._lgraph.replay()
+            log.update(layout_capture_s=l_cap, layout_instantiate_s=l_inst)
         graph, cap_s, inst_s, self.launches_per_replay = _capture_graph(
             lambda: self._body(state, box_points, c, delta_t, volume_position), state, dev)
-        log = dict(capture_s=cap_s, instantiate_s=inst_s)
+        log.update(capture_s=cap_s, instantiate_s=inst_s)
         if self.densify_seed is not None:
             self._dgraph, d_cap, d_inst, _ = _capture_graph(lambda: self._densify(state),
                                                             state, dev)
@@ -600,12 +666,14 @@ def make_scanned_train_step(settings: RenderSettings, optim: OptimizationParams,
     the overflow flag OR-reduced on the device (`ScannedTrainStep`). With
     `densify_seed` (and `optim.mcmc_densification_flag`) the chunk
     densifies where the per-step path would, its donors keyed on
-    (densify_seed, post-update step); `seed` keys the SGLD noise. Frozen
-    layouts (`ref_cam`) are not ported yet and raise."""
-    if ref_cam is not None:
-        raise not_ported("the frozen layout (ref_cam)", 8)
+    (densify_seed, post-update step); `seed` keys the SGLD noise. With
+    `ref_cam` (rsort family; other backends ignore it, as in JAX) each call
+    builds one frozen layout from the entering state and `ref_cam`, with
+    `layout_slack` (which must cover the largest distance from `ref_cam`
+    to a scan point, plus the parameters' drift over a chunk), and its K
+    steps render through it."""
     return ScannedTrainStep(settings, optim, max_sh_degree, sh_anneal_interval, seed,
-                            densify_seed)
+                            densify_seed, ref_cam, layout_slack)
 
 
 # --- scan points, capacities -------------------------------------------------------
@@ -676,19 +744,18 @@ def _cap_bucket(v: int) -> int:
 
 def fit_culling_capacity(settings: RenderSettings, scene, probe_cams, box_points,
                          c: float, delta_t: float, grow_only: bool = True,
-                         ref_cam=None):
+                         ref_cam=None, layout_slack: float = 0.0):
     """Fit the active backend's static culling capacities to the scene on
     the (P, 3) probe scan points. Returns (settings, changed).
 
     'pallas': for each probe, double `tile_spec.k_max` until its cull stops
     saturating (at most 8 doublings a probe; the reported count is clamped
     at k_max, so it is not trusted), printing each raise. The rsort family:
-    `tune_rsort_spec`; with `grow_only` (the runtime re-tune) the caps only
-    grow, to quarter-power-of-2 buckets. Backends without capacities return
-    the settings unchanged. Frozen layouts (`ref_cam`) and 'pallas_dsort'
-    are not ported and raise."""
-    if ref_cam is not None:
-        raise not_ported("the frozen layout (ref_cam)", 8)
+    `tune_rsort_spec`, with `ref_cam` against one frozen layout from it
+    (`layout_slack`), as the chunks of a frozen-layout run render; with
+    `grow_only` (the runtime re-tune) the caps only grow, to
+    quarter-power-of-2 buckets. Backends without capacities return the
+    settings unchanged. 'pallas_dsort' is not ported and raises."""
     if settings.backend == "pallas_dsort":
         raise not_ported("backend 'pallas_dsort'", 9)
     dev = scene.means.device
@@ -698,7 +765,8 @@ def fit_culling_capacity(settings: RenderSettings, scene, probe_cams, box_points
         fitted = tune_rsort_spec(
             scene, cams, box_points, settings.num_sampling_points, settings.start,
             settings.end, c, delta_t, base=cur,
-            scaling_modifier=settings.scaling_modifier,
+            scaling_modifier=settings.scaling_modifier, ref_cam=ref_cam,
+            slack=layout_slack,
         )
         if grow_only:
             new = cur._replace(
@@ -745,7 +813,8 @@ def prepare_training(
     Without init points, uniform random-in-volume init with the reference's
     margin semantics (`init_rand_points`) from `cfg.rng` (or `seed`). The
     kernel backends' capacities are fitted to the initial population on the
-    probe scan points (`grow_only=False`)."""
+    probe scan points (`grow_only=False`), against the frozen layout of
+    `layout_reference(data)` when `cfg.frozen_layout` is set."""
     check_ported(cfg, optim)
     from nlos_gaussian_renderer_tpu_torch.utils.init import init_rand_points
 
@@ -764,8 +833,10 @@ def prepare_training(
     box_points = gmath.volume_box_points(data.volume_position, data.volume_size,
                                          device=dev)
     probes = probe_scan_points(data)
+    ref_cam, layout_slack = layout_reference(data) if cfg.frozen_layout else (None, 0.0)
     settings, _ = fit_culling_capacity(settings, scene, probes, box_points, data.c,
-                                       data.deltaT, grow_only=False)
+                                       data.deltaT, grow_only=False, ref_cam=ref_cam,
+                                       layout_slack=layout_slack)
     if settings.backend in KERNEL_BACKENDS:
         diag = check_culling_capacity(scene, torch.as_tensor(probes[-1], device=dev),
                                       box_points, data.c, data.deltaT, settings)
@@ -789,12 +860,15 @@ class OverflowGate:
     and, unlike JAX's (probes only), the overflowed step's, chunk's or
     window's own cameras: a scan point the probes miss is healed, not
     recorded (the 256x256 grid's five probes do not bound `k_max` at
-    100k)."""
+    100k). With `ref_cam` (frozen layouts) the chunk builds its layouts
+    from it and every re-fit culls against one; the single step renders
+    without a layout, as JAX's `fit` does."""
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
                  max_sh_degree: int, probe_cams, box_points, c: float, delta_t: float,
                  sh_anneal_interval: int = 1000, seed: int = 0,
-                 densify_seed: Optional[int] = None):
+                 densify_seed: Optional[int] = None, ref_cam=None,
+                 layout_slack: float = 0.0):
         self.settings = settings
         self.retunes = 0
         self.retune_caps = []
@@ -802,6 +876,7 @@ class OverflowGate:
         self._optim, self._max_sh = optim, max_sh_degree
         self._interval = sh_anneal_interval
         self._seed, self._densify_seed = seed, densify_seed
+        self._ref_cam, self._layout_slack = ref_cam, layout_slack
         self._probes = np.asarray(probe_cams, np.float32).reshape(-1, 3)
         self._box, self._c, self._dt = box_points, c, delta_t
         self.step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval, seed)
@@ -809,8 +884,10 @@ class OverflowGate:
 
     def enable_chunk(self) -> ScannedTrainStep:
         self.chunk = make_scanned_train_step(self.settings, self._optim, self._max_sh,
-                                             self._interval, seed=self._seed,
-                                             densify_seed=self._densify_seed)
+                                             self._interval, ref_cam=self._ref_cam,
+                                             layout_slack=self._layout_slack,
+                                             densify_seed=self._densify_seed,
+                                             seed=self._seed)
         return self.chunk
 
     def _rebuild(self, settings: RenderSettings) -> None:
@@ -823,6 +900,7 @@ class OverflowGate:
             self.chunk.captures += old.captures
             self.chunk.replays += old.replays
             self.chunk.densify_replays += old.densify_replays
+            self.chunk.layout_replays += old.layout_replays
             # The last capture's statistics stand until the new chunk captures.
             self.chunk.capture_log = old.capture_log
             self.chunk.launches_per_replay = old.launches_per_replay
@@ -841,7 +919,9 @@ class OverflowGate:
             probes = np.concatenate(
                 [probes, cams.detach().reshape(-1, 3).cpu().numpy().astype(np.float32)])
         new, changed = fit_culling_capacity(self.settings, state.scene, probes,
-                                            self._box, self._c, self._dt)
+                                            self._box, self._c, self._dt,
+                                            ref_cam=self._ref_cam,
+                                            layout_slack=self._layout_slack)
         if changed:
             self._rebuild(new)
             if new.backend in RSORT_FAMILY:
@@ -939,6 +1019,12 @@ def fit(
     window; the capacities are re-tuned after each chunk or step that
     densified. The donors and the SGLD noise are keyed on the device step
     counter, so both paths and every replay draw the same.
+
+    `cfg.frozen_layout` (rsort family): each chunk renders through one
+    block layout built at its entry from `layout_reference(data)` (the
+    scan-grid centroid, its aperture radius + 2 cm), and the caps are fitted
+    against such a layout; single steps (the tail, the per-step path, and
+    so every densified frozen-layout run) render without one, as in JAX.
     """
     num_iters = num_iters if num_iters is not None else optim.iterations
     log_every = log_every if log_every is not None else cfg.print_interval
@@ -967,9 +1053,11 @@ def fit(
     cam_grid = torch.as_tensor(np.ascontiguousarray(data.camera_grid_positions.T),
                                device=dev)  # (MN, 3)
     vol_pos = torch.as_tensor(data.volume_position, device=dev)
+    ref_cam, layout_slack = layout_reference(data) if cfg.frozen_layout else (None, 0.0)
     gate = OverflowGate(settings, optim, cfg.sh_degree, probe_scan_points(data),
                         box_points, data.c, data.deltaT, seed=cfg.rng,
-                        densify_seed=densify_seed)
+                        densify_seed=densify_seed, ref_cam=ref_cam,
+                        layout_slack=layout_slack)
     consts = (box_points, data.c, data.deltaT, vol_pos)
 
     # The whole run's scan points, drawn up front (the stream is consumed
@@ -988,7 +1076,11 @@ def fit(
     if callback is not None:
         cadence = math.gcd(log_every, callback_every) if callback_every else 0
     chunk = 1
-    if cadence:
+    # A frozen layout cannot follow a densify event inside a chunk (a
+    # relocated Gaussian may leave the layout's slack), so a densified
+    # frozen-layout run takes the per-step path, whose steps use no layout
+    # (JAX's `densify_chunk_ok`).
+    if cadence and not (optim.mcmc_densification_flag and cfg.frozen_layout):
         for cand in (50, 25, 20, 10, 5, 4, 2):
             if cadence % cand == 0 and num_iters >= cand:
                 chunk = cand
@@ -1009,6 +1101,7 @@ def fit(
             ch = gate.chunk
             stats = dict(chunk=chunk, captures=ch.captures, replays=ch.replays,
                          densify_replays=ch.densify_replays,
+                         layout_replays=ch.layout_replays,
                          capture_log=list(ch.capture_log),
                          capture_s=ch.capture_s, instantiate_s=ch.instantiate_s,
                          launches_per_replay=dict(ch.launches_per_replay))

@@ -165,11 +165,18 @@ def test_dense_analytic_grads_of_six_groups_match_jax(occ):
 
 
 def test_analytic_per_gaussian_occlusion_raises():
+    """The analytic field has no per_gaussian mode (JAX's raises too); a
+    direct call raises, and `render_transient` renders the mode with the
+    Gaussian-chunked field instead (tests/test_torch_occlusion.py)."""
     _, ts = both(scene_np(8, 2))
     st = RenderSettings(num_sampling_points=8, start=60, end=140, occlusion=True,
                         occlusion_mode="per_gaussian", backend="analytic")
+    cam = torch.as_tensor(CAM)
+    grid = shell_grid(cam, T_BOX, 8, 60, 140, C, DT)
     with pytest.raises(NotImplementedError):
-        render_transient(ts, torch.as_tensor(CAM), T_BOX, C, DT, torch.as_tensor(VOL), 1, st)
+        ta.analytic_field_response(ts, grid, cam, C, DT, 1, st)
+    _, hist, ov = render_transient(ts, cam, T_BOX, C, DT, torch.as_tensor(VOL), 1, st)
+    assert torch.isfinite(hist).all() and not bool(ov)
 
 
 @pytest.mark.parametrize("renderer", ["dense", "pallas", "pallas_rsort", "pallas_analytic",

@@ -221,6 +221,20 @@ def test_build_work_lists_edge_cases_equal_plain(dev, case, n_ch):
             alo, ahi, n_ch, 10, w), got))
 
 
+def _spin():
+    """A spin kernel to open a profiler window: the profiler has dropped a
+    window's first device event on the H100 after other card tests ran in
+    the process (ROADMAP.md Queue 3), so the kernels counted come after it."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _device_events(prof, device_type):
+    """The window's device events, the spin kernel left out."""
+    return [e.name for e in prof.events()
+            if e.device_type == device_type.CUDA and "spin_kernel" not in e.name]
+
+
 def test_schedule_launches_only_the_cast_k1_and_k2_after_the_gather(dev):
     """What `rsort_schedule` runs after `WidePadGather`: one cast kernel
     (full_perm), K1 and K2; no fill, copy or compare."""
@@ -233,9 +247,10 @@ def test_schedule_launches_only_the_cast_k1_and_k2_after_the_gather(dev):
     fr._lists_from_rows(rows, x["n_gw"], x["grid"].r, geo.n_tt, geo.n_pt, spec)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _spin()
         fr._lists_from_rows(rows, x["n_gw"], x["grid"].r, geo.n_tt, geo.n_pt, spec)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = _device_events(prof, DeviceType)
     assert len(names) == 3, names
     assert sum("cull_reduce" in n for n in names) == 1
     assert sum("build_work_lists" in n for n in names) == 1
@@ -619,9 +634,10 @@ def test_worklist_add_is_two_kernels_and_no_fill(dev):
     mb.worklist_add(fb, cnt, x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _spin()
         mb.worklist_add(fb, cnt, x)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = _device_events(prof, DeviceType)
     assert len(names) == 2, names
     assert sum("count_blocks" in n for n in names) == 1
     assert sum("stream_blocks" in n for n in names) == 1

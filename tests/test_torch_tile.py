@@ -287,8 +287,7 @@ def test_fit_culling_capacity_matches_jax(backend, grow_only):
                                               tnew)["overflowed"]
 
 
-@pytest.mark.parametrize("backend,ref_cam", [("pallas_dsort", None),
-                                             ("pallas_rsort", CAM)])
+@pytest.mark.parametrize("backend,ref_cam", [("pallas_dsort", None)])
 def test_fit_culling_capacity_raises_where_not_ported(backend, ref_cam):
     ts = scene_from_numpy(scene_np(16, 1), "cpu")
     st = RenderSettings(num_sampling_points=8, start=60, end=140, backend=backend)
