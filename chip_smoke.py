@@ -16,7 +16,10 @@ size: 100k Gaussians (numpy seed 0, sigma 2-12 mm), one scan point per step,
 
 and the measurement tools path (`nlos_gaussian_renderer_tpu_torch/tools`):
 the microbenchmarks with the work-list kernel K9, cullbench, and the 100k
-gradient parity of `pallas_rsort` against the chunked dense ground truth.
+gradient parity of `pallas_rsort` against the chunked dense ground truth;
+then `fit` and the CLI on the Zaragoza artifact, the options (frozen
+layouts, per_gaussian occlusion), `pallas_dsort` (its duplicated lists on
+K1-K4) and the sharded step (`parallel/`: NCCL and gloo worlds on the card).
 
 Phases:
 
@@ -186,7 +189,30 @@ Phases:
      False), one forward and one forward + backward timed, peak memory;
      `fit` at 100k on the artifact, 3 iterations on the per-step path
      (finite); a per_gaussian chunk of 10 at 5k from its graph against the
-     same steps eagerly (bit for bit). Each phase prints its seconds.
+     same steps eagerly (bit for bit);
+ 17. `pallas_dsort` (`tools/dsortbench.py`): the caps tuned on the three
+     probes from `bench.py:182-225`'s 4x4-ray base; at the bench scene's
+     centre camera its lists (1x1 rect words) through K1/K2 against their
+     plain versions (exact), K3/K4 on its table (phase 3's gates), each
+     launched twice; the duplicate gather's backward bit for bit twice and
+     from a CUDA graph, within 1e-6 of one `index_add_`; the histogram at
+     the three probes against chunked dense (< 2.5e-3); 5k gradients
+     (cosine >= 0.999); `fit` on the artifact (fit's 8x16-ray tiles, 100
+     iterations: finite, the last loss below the first) and a chunk of 50
+     from its graph against the same steps eagerly, twice (bit for bit),
+     its ms/step, device ms/step, events a step and peak memory beside
+     phase 12's `pallas_rsort` chunk; counters reset before the `fit` and
+     read after;
+ 18. the sharded step (`tools/shardbench.py`, the artifact at 50k of 100k
+     slots): a world of 1 over NCCL, mesh (1, 1): 3 sharded steps and one
+     sharded densify step against the single-device steps and
+     `densify_step` (bit for bit), the sharded chunk of 3 from one CUDA
+     graph (NCCL collectives captured) against them (bit for bit); a world
+     of 2 over gloo with CUDA tensors on the same card, mesh (1, 2): losses
+     rtol 1e-4, means rtol 1e-3 / atol 1e-6, and the overflow of the second
+     Gaussian shard raised on both ranks; ms/step of each (the gloo one
+     host-staged); every rank's kernel launches join the kernels line.
+     Each phase prints its seconds.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and as its last line {"ok": true, "device": {...}}. Any failed phase exits
@@ -2063,9 +2089,130 @@ def main() -> int:
         return dict(counts=ft["launch_counts"])
 
     occ_out = occlusion_phase()
+
+    @phase("pallas_dsort (100k bench scene: K1-K4 on its lists, histograms, 5k gradients; "
+           "fit and a chunk of 50 on the Zaragoza artifact)")
+    def dsort_phase():
+        from nlos_gaussian_renderer_tpu_torch.tools import dsortbench
+
+        out = dsortbench.run(dev, scene=scene)
+        sp, kr = out["spec"], out["kernels"]
+        log(f"dsort caps tuned on the 3 probes from 4x4-ray tiles (t_chunk "
+            f"{sp['t_chunk']}): d_max {sp['d_max']}, dup_rows {sp['dup_rows']}, w_max "
+            f"{sp['w_max']}; centre camera: max_dups {kr['max_dups']}, n_rows "
+            f"{kr['n_rows']} duplicate rows of {N_GAUSSIANS} Gaussians, padded rows "
+            f"{kr['padded_rows']}, n_items {kr['n_items']}, on {card}")
+        check(not kr["overflowed"], "100k dsort cull at the centre camera fits its caps")
+        check(kr["k1_equal"] and kr["k1_again_equal"],
+              "K1 cull_reduce on the dsort rows (1x1 rect words) == plain (exact: words, "
+              "abs_lo, abs_hi); second launch equal")
+        check(kr["k2_equal"] and kr["k2_again_equal"] and kr["lists_equal_cull"],
+              "K2 build_work_lists on the dsort ranges == plain (exact, all outputs); second "
+              "launch equal; the cull's lists are K2's")
+        check(kr["k3_rel_l2"] <= 1e-5 and kr["k3_again_equal"],
+              f"K3 rsort_fwd on the dsort table rel_l2 {kr['k3_rel_l2']:.3e} <= 1e-5; second "
+              "launch equal")
+        check(kr["k4_rel_l2"] <= 1e-4 and kr["k4_unvisited_zero"] and kr["k4_again_equal"],
+              f"K4 rsort_bwd on the dsort table rel_l2 {kr['k4_rel_l2']:.3e} <= 1e-4 (visited "
+              "blocks), zeros elsewhere; second launch equal")
+        check(kr["dup_gather_again_equal"] and kr["dup_gather_graph_equal"]
+              and kr["dup_gather_vs_index_add_rel_l2"] <= 1e-6,
+              f"DupGather backward (k order, slot table): twice bit for bit, from a CUDA "
+              f"graph bit for bit; vs one index_add_ max |diff| "
+              f"{kr['dup_gather_vs_index_add_max_abs']:.3e}, rel_l2 "
+              f"{kr['dup_gather_vs_index_add_rel_l2']:.3e} <= 1e-6")
+        log("dsort lists, ms (CUDA events): " + ", ".join(
+            f"{k} {v:.5f}" for k, v in kr["ms"].items())
+            + f"; DupGather backward {kr['dup_gather_ms']:.5f}, index_add_ "
+            f"{kr['index_add_ms']:.5f}, on {card}")
+        for i, h in enumerate(out["histograms"]):
+            check(h["finite"] and not h["overflow"] and h["shape"] == [nb]
+                  and h["rel_l2"] < 2.5e-3,
+                  f"100k pallas_dsort at probe {i} {h['cam']}: rel_l2 {h['rel_l2']:.3e} < "
+                  f"2.5e-3 vs chunked dense, finite, no overflow")
+        gr = out["gradients"]
+        check(not gr["overflow"], "5k pallas_dsort render did not overflow")
+        for n, (r, cs) in gr["groups"].items():
+            check(cs >= 0.999, f"5k pallas_dsort grad {n} vs dense: rel_l2 {r:.3e} cosine "
+                  f"{cs:.6f} >= 0.999")
+        ft = out["fit"]
+        losses = ft["losses"]
+        check(ft["finite"] and len(losses) >= 2 and losses[-1] < losses[0]
+              and not ft["overflow_detected"],
+              f"pallas_dsort chunked fit (Zaragoza artifact, 100k, fit's 8x16-ray tiles, "
+              f"{dsortbench.FIT_ITERS} iterations): losses {losses}, finite, last below the "
+              f"first; {ft['retunes']} re-tunes, caps after each {ft['retune_caps']}")
+        log(f"pallas_dsort chunked fit: {ft['ms_per_step']:.4f} ms/step overall, fit's own "
+            f"{ft['fit_ms_per_step']:.4f}, by chunk "
+            f"{[round(v, 4) for v in ft['chunk_ms_per_step']]}, launches a replay "
+            f"{ft['chunk_stats']['launches_per_replay']}, peak {ft['peak_mib']:.1f} MiB, on "
+            f"{card}")
+        rp = out["replay"]
+        check(rp["replay_equals_eager"] and rp["losses_equal"] and rp["eager_equals_eager"]
+              and rp["replay_again_equals"] and not rp["overflow"],
+              f"pallas_dsort chunk of 50 from its graph vs 50 eager steps: max |diff| "
+              f"{rp['replay_vs_eager_max_abs']:.3e} (bit for bit: {rp['replay_equals_eager']}), "
+              f"losses equal {rp['losses_equal']}; eager vs eager "
+              f"{rp['eager_vs_eager_max_abs']:.3e} (bit for bit: {rp['eager_equals_eager']}); "
+              f"caps {rp['caps']}")
+        rows = [("pallas_dsort", rp)]
+        if fit_out is not None:
+            rows.append(("pallas_rsort (phase 12, this process)", fit_out["replay"]))
+        for tag, r in rows:
+            pr, ep = r["profile"], r["eager_profile"]
+            log(f"{tag} chunk of 50: graph {[round(v, 4) for v in r['graph_ms_per_step']]} "
+                f"ms/step, eager {[round(v, 4) for v in r['eager_ms_per_step']]} ms/step (CUDA "
+                f"events); device {pr['device_ms_per_step']:.4f} ms/step and "
+                f"{pr['events_per_step']:.1f} events/step from the graph, eager "
+                f"{ep['device_ms_per_step']:.4f} ms/step and {ep['events_per_step']:.1f} "
+                f"events/step (profiler); caps {r['caps']}; peak {r['peak_mib']:.1f} MiB, on "
+                f"{card}")
+            for name, cnt, ms in pr["top"][:5]:
+                log(f"  {ms:8.4f} ms/step  {cnt:5.1f}/step  {name}")
+        log("dsortbench parts: " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in out["seconds"].items()))
+        return dict(counts=ft["launch_counts"])
+
+    dsort_out = dsort_phase()
+
+    @phase("the sharded step on the card (NCCL world of 1, gloo world of 2 with CUDA tensors)")
+    def shard_phase():
+        from nlos_gaussian_renderer_tpu_torch.tools import shardbench
+
+        out = shardbench.run(dev)
+        nc, gl = out["nccl"], out["gloo"]
+        check(nc["steps_then_densify_equal"] and nc["losses_equal"] and not any(nc["overflow"]),
+              f"NCCL world of 1, mesh (1, 1), Zaragoza artifact {out['gaussians']} of "
+              f"{out['capacity']} slots: {out['k']} sharded steps and one sharded densify "
+              f"step (alive {nc['alive'][0]} -> {nc['alive'][1]}) == the single-device steps "
+              f"and densify_step bit for bit (max |diff| {nc['max_abs']:.3e}), losses equal")
+        cs = nc["chunk_stats"]
+        check(nc["chunk_equal"] and nc["chunk_losses_equal"] and cs["graphs"]
+              and cs["captures"] == 1 and cs["replays"] >= out["k"],
+              f"NCCL sharded chunk of {out['k']}: one capture (collectives in the graph), "
+              f"{cs['replays']} replays, launches a replay {cs['launches_per_replay']}; its "
+              f"{out['k']} steps == the single-device steps bit for bit")
+        log(f"sharded step, NCCL world of 1: eager {nc['step_ms_per_step']:.4f} ms/step, the "
+            f"chunk's graph {nc['chunk_ms_per_step']:.4f} ms/step; single-device eager "
+            f"{out['single_ms_per_step']:.4f} ms/step (host clock), world up and run in "
+            f"{nc['seconds']:.1f} s, on {card}")
+        check(gl["losses_within"] and gl["means_within"] and not any(sum(gl["overflow"], [])),
+              f"gloo world of 2 on the card (CUDA tensors), mesh (1, 2): losses "
+              f"{gl['losses']} vs single-device {out['single_losses']} within rtol 1e-4; means "
+              f"max |diff| {gl['means_max_abs']:.3e} within rtol 1e-3 / atol 1e-6")
+        check(gl["starved_overflow"] == [[True], [True]],
+              f"gloo world of 2: shard 0 dead rows only, shard 1 over w_max 1: overflow "
+              f"{gl['starved_overflow']} on both ranks")
+        log(f"sharded step, gloo world of 2 on one card: {gl['ms_per_step']:.4f} ms/step "
+            f"(host-staged collectives, not a multi-card figure), world up and run in "
+            f"{gl['seconds']:.1f} s, on {card}")
+        return dict(counts=out["launch_counts"])
+
+    shard_out = shard_phase()
     if (failures or None in trained.values() or tools_counts is None or k9_counts is None
             or fit_out is None or dens_out is None or cli_out is None
-            or frozen_out is None or occ_out is None
+            or frozen_out is None or occ_out is None or dsort_out is None
+            or shard_out is None
             or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
@@ -2076,7 +2223,8 @@ def main() -> int:
     launches = {k: sum(c[k] for c, _, _ in trained.values())
                 + sum(r["launch_counts"][k] for r in fit_runs)
                 + sum(c[k] for c in cli_out["launch_counts"].values())
-                + frozen_out["counts"][k] + occ_out["counts"][k] if k in on_steps
+                + frozen_out["counts"][k] + occ_out["counts"][k] + dsort_out["counts"][k]
+                + shard_out["counts"][k] if k in on_steps
                 else k9_counts[k] for k in kernel_rows}
     log("launches by CLI run (wrapper calls outside a capture): "
         + json.dumps(cli_out["launch_counts"]))

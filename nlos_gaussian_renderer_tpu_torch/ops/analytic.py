@@ -133,14 +133,19 @@ def analytic_field(scene: GaussianScene, grid: ShellGrid, camera_pos,
 
 def analytic_field_response(scene: GaussianScene, grid: ShellGrid, camera_pos,
                             c, delta_t, active_sh_degree, settings,
-                            gauss_chunk: Optional[int] = None):
+                            gauss_chunk: Optional[int] = None, gauss_group=None):
     """Analytic counterpart of `render.field_response`, flattened (A,): no
     occlusion, or aggregate `netf` / `nlos-neus` with the numerical path's
     discrete exp(-cumsum) transmittance. `per_gaussian` raises, as in JAX:
     `render_transient` renders that mode in Gaussian chunks
     (`render.field_response_per_gaussian_chunked`), so only a direct call
-    reaches the guard."""
-    from nlos_gaussian_renderer_tpu_torch.ops.render import _composite, channel_weights
+    reaches the guard. With `gauss_group` (a Gaussian-sharded scene) the
+    per-channel fields are summed over the group before compositing."""
+    from nlos_gaussian_renderer_tpu_torch.ops.render import (
+        _composite,
+        channel_weights,
+        gauss_sum,
+    )
 
     if settings.occlusion and settings.occlusion_mode != "aggregate":
         raise NotImplementedError(
@@ -149,4 +154,5 @@ def analytic_field_response(scene: GaussianScene, grid: ShellGrid, camera_pos,
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
     field = analytic_field(scene, grid, camera_pos, w, settings.scaling_modifier,
                            gauss_chunk)
-    return _composite(field.reshape(-1, w.shape[1]), c, delta_t, settings)
+    return _composite(gauss_sum(field.reshape(-1, w.shape[1]), gauss_group), c, delta_t,
+                      settings)

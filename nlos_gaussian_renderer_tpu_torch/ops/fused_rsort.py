@@ -103,8 +103,9 @@ class RSortSpec(NamedTuple):
 
     The fields match the JAX `RSortSpec`, so configs carry over. The port
     computes in f32 and ignores `bwd_p_bf16`, `bwd_exp_bf16`, `fwd_p_bf16`
-    (bf16 variants of the TPU kernels), `d_max`/`dup_rows` (dsort, not
-    ported) and `ws_pallas` (the work lists always go through K1/K2). Its
+    (bf16 variants of the TPU kernels) and `ws_pallas` (the work lists
+    always go through K1/K2); `d_max`/`dup_rows` size the duplicated layout
+    of `pallas_dsort` (`fused_dsort.py`). Its
     kernels cover exactly each item's bin range [bl, bh], so `gate_bins`
     only has to divide `t_chunk`; `mask_dead_blocks` is moot because K4
     and K6 write every row of their output, zeros in the blocks no item
@@ -1046,12 +1047,20 @@ def rsort_gaussian_field(gfeat, channel_weights, tiles: RSortTiles,
     With `tiles` from `rsort_cull(..., gw=cat([gfeat, channel_weights]))`
     the field reads the table the cull gathered, not `gfeat` itself; from a
     cull without `gw`, the table is gathered here (`_field_table`)."""
+    table = _field_table(tiles, gfeat, channel_weights, "rsort_gaussian_field")
+    return sampled_field(table, tiles, spec, grid, cam, channel_weights.shape[1]), \
+        tiles.overflowed
+
+
+def sampled_field(table, tiles, spec: RSortSpec, grid, cam, c: int):
+    """K3 (and K4 in the backward) over `tiles`' lists on the padded
+    `table` ([forms | C weights | word | 3 geometry]), untiled to (num_r,
+    ns, ns, C): the field of `rsort_gaussian_field` and of the duplicated
+    layout (`fused_dsort.dsort_gaussian_field`)."""
     num_r, ns = grid.r.shape[0], grid.theta.shape[0]
     n_tt = _cdiv(ns, spec.t_theta)
     n_pt = _cdiv(ns, spec.t_phi)
     n_ch = _cdiv(num_r, spec.t_chunk)
-    c = channel_weights.shape[1]
-    table = _field_table(tiles, gfeat, channel_weights, "rsort_gaussian_field")
     if spec.t_chunk % spec.gate_bins:
         raise ValueError(
             f"gate_bins={spec.gate_bins} must divide t_chunk={spec.t_chunk}"
@@ -1068,8 +1077,7 @@ def rsort_gaussian_field(gfeat, channel_weights, tiles: RSortTiles,
         tiles.words.reshape(-1).contiguous(), tiles.fwd, tiles.bwd,
         tiles.n_items, geo, c,
     )
-    field = untile_field_t(out, ns, num_r, tp_spec, n_tt, n_pt, n_ch)
-    return field, tiles.overflowed
+    return untile_field_t(out, ns, num_r, tp_spec, n_tt, n_pt, n_ch)
 
 
 @torch.no_grad()

@@ -1,11 +1,12 @@
 """Differentiable confocal transient rendering (PyTorch).
 
 Port of `nlos_gaussian_renderer_tpu/ops/render.py` for the `dense`,
-`analytic`, `pallas`, `pallas_rsort` and `pallas_analytic` backends, with no
-occlusion, aggregate occlusion or per_gaussian occlusion (`netf` /
-`nlos-neus`). For one scan point it renders the time-of-flight histogram of
-the Gaussian scene by integrating the field over spherical shells: field ->
-* sin(theta)/r^2 -> * volume_y^2 -> sum over angles -> * dtheta * dphi.
+`analytic`, `pallas`, `pallas_rsort`, `pallas_analytic` and `pallas_dsort`
+backends, with no occlusion, aggregate occlusion or per_gaussian occlusion
+(`netf` / `nlos-neus`). For one scan point it renders the time-of-flight
+histogram of the Gaussian scene by integrating the field over spherical
+shells: field -> * sin(theta)/r^2 -> * volume_y^2 -> sum over angles ->
+* dtheta * dphi.
 
 The dense field is exp(-0.5 * X10 @ G10^T) @ weights (or the broadcast
 difference form, `pdf_impl='direct'`), optionally chunked over Gaussians
@@ -15,6 +16,12 @@ the radius axis. per_gaussian occlusion attenuates each Gaussian by its own
 accumulated density, so it needs the un-reduced (sample, Gaussian) matrix:
 every backend but `dense` renders it in Gaussian chunks
 (`field_response_per_gaussian_chunked`), never through the kernels.
+
+With `gauss_group` (a `torch.distributed` group over which the scene's rows
+are sharded, `parallel/sharding.py`) every sum over Gaussians is summed
+over the group (`gauss_sum`) before compositing, at JAX's `gauss_axis`
+reduction points: exact in every mode, since each per-sample field is a
+sum of per-Gaussian terms.
 """
 
 from __future__ import annotations
@@ -33,6 +40,10 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused import (
     fused_gaussian_field,
 )
 from nlos_gaussian_renderer_tpu_torch.ops.fused_analytic import analytic_gaussian_field
+from nlos_gaussian_renderer_tpu_torch.ops.fused_dsort import (
+    dsort_cull,
+    dsort_gaussian_field,
+)
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import (
     RSortSpec,
     rsort_cull,
@@ -44,12 +55,13 @@ from nlos_gaussian_renderer_tpu_torch.ops.sampling import (
     shell_grid,
 )
 
-BACKENDS = ("dense", "analytic", "pallas", "pallas_rsort", "pallas_analytic")
+BACKENDS = ("dense", "analytic", "pallas", "pallas_rsort", "pallas_analytic",
+            "pallas_dsort")
 # Every backend name the JAX package accepts; any other maps to 'dense'.
 _JAX_BACKENDS = ("pallas", "pallas_rsort", "pallas_analytic", "pallas_dsort",
                  "analytic")
 RSORT_FAMILY = ("pallas_rsort", "pallas_analytic")
-KERNEL_BACKENDS = ("pallas",) + RSORT_FAMILY
+KERNEL_BACKENDS = ("pallas",) + RSORT_FAMILY + ("pallas_dsort",)
 
 
 class RenderSettings(NamedTuple):
@@ -58,8 +70,10 @@ class RenderSettings(NamedTuple):
     `backend` keeps the JAX package's names: 'dense' (plain tensor ops),
     'analytic' (closed-form erf sections, plain tensor ops), 'pallas' (the
     tile kernels K7/K8, capacity `tile_spec.k_max`), 'pallas_rsort' and
-    'pallas_analytic' (the work-list kernels, capacities in `rsort_spec`).
-    The JAX package's 'pallas_dsort' is not ported yet and raises.
+    'pallas_analytic' (the work-list kernels, capacities in `rsort_spec`)
+    and 'pallas_dsort' (the duplicated layout on K1-K4, capacities
+    `rsort_spec.d_max`, `dup_rows` and `w_max`; it takes no frozen layout,
+    as in JAX).
     `pdf_impl` picks the dense field's Mahalanobis form: 'matmul' (the
     quadratic form against the point monomials) or 'direct' (the broadcast
     (A, N, 3) difference form, `math.mahalanobis_direct`).
@@ -139,6 +153,18 @@ def gaussian_pdf(scene: GaussianScene, points, settings: RenderSettings):
     else:
         raise ValueError(f"pdf_impl={settings.pdf_impl!r}")
     return torch.exp(-0.5 * maha)
+
+
+def gauss_sum(x, gauss_group=None):
+    """`x` summed over the Gaussian shards of `gauss_group` (JAX's psum
+    over `gauss_axis`); `x` itself without a group. The backward passes the
+    cotangent through unchanged: it is the same on every rank of the group
+    (`parallel.sharding.GaussSum`)."""
+    if gauss_group is None:
+        return x
+    from nlos_gaussian_renderer_tpu_torch.parallel.sharding import GaussSum
+
+    return GaussSum.apply(x, gauss_group)
 
 
 def _exclusive_cumsum(x, dim):
@@ -241,25 +267,28 @@ def _is_per_gaussian(settings: RenderSettings) -> bool:
 
 def field_response(scene: GaussianScene, points, camera_pos, c, delta_t,
                    active_sh_degree, settings: RenderSettings,
-                   gauss_chunk: Optional[int] = None):
+                   gauss_chunk: Optional[int] = None, gauss_group=None):
     """(A,) rho-weighted emission at (A, 3) points, A = num_r * ns^2:
     no occlusion: sum_g pdf * op * rho; aggregate netf:
     (sum pdf*op*rho) * T * c*dt with T = exp(-c*dt * excl-cumsum_r(sum pdf*op));
     aggregate nlos-neus: the alpha-compositing analogue; per_gaussian: the
     same with each Gaussian's own transmittance (`_per_gaussian_response`),
     on the whole (A, N) matrix, or with `gauss_chunk` in Gaussian chunks
-    (`field_response_per_gaussian_chunked`)."""
+    (`field_response_per_gaussian_chunked`). With `gauss_group` the sums
+    over Gaussians are summed over the group's shards (`gauss_sum`); the
+    per_gaussian branch is too, where JAX's dense branch has no psum."""
     if _is_per_gaussian(settings):
         if gauss_chunk is not None:
             return field_response_per_gaussian_chunked(
                 scene, points, camera_pos, c, delta_t, active_sh_degree, settings,
-                gauss_chunk)
+                gauss_chunk, gauss_group)
         ns2 = settings.num_sampling_points**2
         density = (gaussian_pdf(scene, points, settings) * scene.opacities[:, 0]
                    ).reshape(settings.num_bins, ns2, -1)
         rho = view_albedo(scene, camera_pos, active_sh_degree)
-        return _per_gaussian_response(density, rho, c * delta_t,
-                                      settings.rendering_type).reshape(-1)
+        return gauss_sum(_per_gaussian_response(density, rho, c * delta_t,
+                                                settings.rendering_type).reshape(-1),
+                         gauss_group)
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
     mod = settings.scaling_modifier
     if settings.pdf_impl == "matmul":
@@ -271,13 +300,14 @@ def field_response(scene: GaussianScene, points, camera_pos, c, delta_t,
                               gauss_chunk)
     else:
         raise ValueError(f"pdf_impl={settings.pdf_impl!r}")
-    return _composite(both, c, delta_t, settings)
+    return _composite(gauss_sum(both, gauss_group), c, delta_t, settings)
 
 
 def field_response_per_gaussian_chunked(scene: GaussianScene, points, camera_pos, c,
                                         delta_t, active_sh_degree,
                                         settings: RenderSettings,
-                                        gauss_chunk: Optional[int] = None):
+                                        gauss_chunk: Optional[int] = None,
+                                        gauss_group=None):
     """per_gaussian occlusion's (A,) response in Gaussian chunks: each
     Gaussian's transmittance depends on its own density only, so the sum
     over Gaussians chunks exactly. Memory holds one chunk's (A, chunk)
@@ -307,43 +337,50 @@ def field_response_per_gaussian_chunked(scene: GaussianScene, points, camera_pos
         density = (torch.exp(-0.5 * maha) * o[None, :]).reshape(num_r, ns2, -1)
         return _per_gaussian_response(density, rh, cdt, settings.rendering_type)
 
-    return _gauss_chunked(body, (xfeat,), (gfeat, op, rho), chunk).reshape(-1)
+    return gauss_sum(_gauss_chunked(body, (xfeat,), (gfeat, op, rho), chunk).reshape(-1),
+                     gauss_group)
 
 
 def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
                           c, delta_t, active_sh_degree, settings: RenderSettings,
-                          layout=None):
+                          layout=None, gauss_group=None):
     """`field_response` through the kernels of the settings' backend:
-    'pallas' (tile cull, K7/K8), 'pallas_rsort' (rsort cull, sampled field)
-    or 'pallas_analytic' (rsort cull, exact per-bin integrals), without
-    occlusion or with aggregate occlusion. `layout` (an
-    `fused_rsort.RSortLayout`, rsort family only) replaces the cull's sort
-    with a frozen block layout. Returns ((A,) response, overflow flag)."""
+    'pallas' (tile cull, K7/K8), 'pallas_rsort' (rsort cull, sampled field),
+    'pallas_analytic' (rsort cull, exact per-bin integrals) or
+    'pallas_dsort' (duplicated cull, sampled field), without occlusion or
+    with aggregate occlusion. `layout` (an `fused_rsort.RSortLayout`,
+    rsort family only; 'pallas_dsort' ignores it, as in JAX) replaces the
+    cull's sort with a frozen block layout. With `gauss_group` the field is
+    summed over the group's shards before compositing. Returns ((A,)
+    response, this shard's overflow flag)."""
     if settings.backend not in KERNEL_BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
     w = channel_weights(scene, camera_pos, active_sh_degree, settings)
     gfeat = scene.quadratic_form(settings.scaling_modifier)
+    spec = settings.rsort_spec
     if settings.backend == "pallas":
         tiles = cull_tiles(scene.means, scene.scales, scene.alive, camera_pos,
                            grid.theta, grid.phi, grid.r, settings.tile_spec,
                            settings.scaling_modifier)
         field, overflow = fused_gaussian_field(gfeat, w, grid.points.detach(), tiles,
                                                settings.tile_spec)
-        both = field.reshape(-1, w.shape[1])
-        return _composite(both, c, delta_t, settings), overflow
-    spec = settings.rsort_spec
-    tiles = rsort_cull(
-        scene.means, scene.scales, scene.alive, camera_pos, grid.theta,
-        grid.phi, grid.r, spec, settings.scaling_modifier, layout=layout,
-        gw=torch.cat([gfeat, w], dim=1),
-    )
-    if settings.backend == "pallas_analytic":
-        field, overflow = analytic_gaussian_field(gfeat, w, grid, tiles, spec,
-                                                  camera_pos)
+    elif settings.backend == "pallas_dsort":
+        tiles = dsort_cull(scene.means, scene.scales, scene.alive, camera_pos, grid.theta,
+                           grid.phi, grid.r, spec, settings.scaling_modifier)
+        field, overflow = dsort_gaussian_field(gfeat, w, tiles, spec, grid, camera_pos)
     else:
-        field, overflow = rsort_gaussian_field(gfeat, w, tiles, spec, grid,
-                                               camera_pos)
-    both = field.reshape(-1, w.shape[1])
+        tiles = rsort_cull(
+            scene.means, scene.scales, scene.alive, camera_pos, grid.theta,
+            grid.phi, grid.r, spec, settings.scaling_modifier, layout=layout,
+            gw=torch.cat([gfeat, w], dim=1),
+        )
+        if settings.backend == "pallas_analytic":
+            field, overflow = analytic_gaussian_field(gfeat, w, grid, tiles, spec,
+                                                      camera_pos)
+        else:
+            field, overflow = rsort_gaussian_field(gfeat, w, tiles, spec, grid,
+                                                   camera_pos)
+    both = gauss_sum(field.reshape(-1, w.shape[1]), gauss_group)
     return _composite(both, c, delta_t, settings), overflow
 
 
@@ -353,7 +390,8 @@ def check_culling_capacity(scene: GaussianScene, camera_pos, box_points, c,
     """Cull one representative scan point and report whether the kernel
     backends' static capacities saturate: {'backend', 'overflowed', ...}
     (the tile backend's `k_max`, the rsort family's `w_max` and
-    `max_groups`). Backends without capacities report no overflow."""
+    `max_groups`, dsort's `d_max`, its rows and `w_max`). Backends without
+    capacities report no overflow."""
     if settings.backend not in BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
     if settings.backend not in KERNEL_BACKENDS:
@@ -371,6 +409,18 @@ def check_culling_capacity(scene: GaussianScene, camera_pos, box_points, c,
             "k_max": settings.tile_spec.k_max,
         }
     spec = settings.rsort_spec
+    if settings.backend == "pallas_dsort":
+        t = dsort_cull(scene.means, scene.scales, scene.alive, camera_pos, grid.theta,
+                       grid.phi, grid.r, spec, settings.scaling_modifier)
+        return {
+            "backend": "pallas_dsort",
+            "overflowed": bool(t.overflowed),
+            "max_dups": int(t.max_dups),
+            "d_max": spec.d_max,
+            "n_rows": int(t.n_rows),
+            "n_items": int(t.n_items[0]),
+            "w_max": spec.w_max,
+        }
     t = rsort_cull(scene.means, scene.scales, scene.alive, camera_pos,
                    grid.theta, grid.phi, grid.r, spec, settings.scaling_modifier)
     return {
@@ -387,7 +437,7 @@ def check_culling_capacity(scene: GaussianScene, camera_pos, box_points, c,
 def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
                      volume_position, active_sh_degree,
                      settings: RenderSettings,
-                     gauss_chunk: Optional[int] = None, layout=None):
+                     gauss_chunk: Optional[int] = None, layout=None, gauss_group=None):
     """Render (transient (num_r, ns^2), histogram (num_r,), overflow ()).
 
     `overflow` is True when a kernel backend's static capacity saturated (a
@@ -397,7 +447,10 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
     occlusion, which every backend but 'dense' renders in Gaussian chunks
     (`field_response_per_gaussian_chunked`). `gauss_chunk` chunks the dense,
     analytic and per_gaussian sums over Gaussians; `layout` applies to the
-    rsort family.
+    rsort family. With `gauss_group` the scene is this rank's shard of a
+    Gaussian-sharded scene: the field is summed over the group, so every
+    rank of it returns the whole scene's render, and `overflow` is this
+    shard's flag (the sharded step reduces it).
     """
     if settings.backend not in BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
@@ -410,22 +463,22 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
     if per_gaussian and settings.backend != "dense":
         out = field_response_per_gaussian_chunked(
             scene, grid.points.reshape(-1, 3), camera_pos, c, delta_t,
-            active_sh_degree, settings, gauss_chunk,
+            active_sh_degree, settings, gauss_chunk, gauss_group,
         )
     elif settings.backend in KERNEL_BACKENDS:
         out, overflow = field_response_pallas(
             scene, grid, camera_pos, c, delta_t, active_sh_degree, settings,
-            layout=layout,
+            layout=layout, gauss_group=gauss_group,
         )
     elif settings.backend == "analytic":
         out = analytic_field_response(
             scene, grid, camera_pos, c, delta_t, active_sh_degree, settings,
-            gauss_chunk,
+            gauss_chunk, gauss_group,
         )
     else:
         out = field_response(
             scene, grid.points.reshape(-1, 3), camera_pos, c, delta_t,
-            active_sh_degree, settings, gauss_chunk,
+            active_sh_degree, settings, gauss_chunk, gauss_group,
         )
     result = out.reshape(settings.num_bins, settings.num_sampling_points**2)
     result = result * attenuation_weights(grid)

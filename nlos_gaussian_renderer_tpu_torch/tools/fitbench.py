@@ -204,8 +204,8 @@ def replay_vs_eager(cfg, optim, data, dev, k=50, timing=True):
     out["eager_vs_eager_max_abs"], out["eager_equals_eager"] = _diffs(eager1, eager2)
     out["losses_equal"] = bool(torch.equal(aux_r.loss, aux_e.loss))
     out["overflow"] = bool(aux_r.overflow) or bool(aux_e.overflow)
-    out["caps"] = dict(w_max=settings.rsort_spec.w_max,
-                       max_groups=settings.rsort_spec.max_groups)
+    out["caps"] = {k: getattr(settings.rsort_spec, k)
+                   for k in ("w_max", "max_groups", "d_max", "dup_rows")}
     out["capture_s"], out["instantiate_s"] = chunk.capture_s, chunk.instantiate_s
     out["capture_log"] = list(chunk.capture_log)
     out["launches_per_replay"] = dict(chunk.launches_per_replay)

@@ -35,9 +35,10 @@ counterpart of JAX's `donate=False`. The SGLD noise and the donor draws
 are keyed on `(seed, step)` with the step read from its device tensor
 (`ops/random.py`), so a replay draws what the first run drew.
 `cfg.frozen_layout` trains the rsort family's chunks on one layout each,
-from `layout_reference(data)`; per_gaussian occlusion renders in Gaussian
-chunks on every backend but 'dense'. `pallas_dsort` is not ported: it
-raises `NotImplementedError` naming its ROADMAP.md item.
+from `layout_reference(data)` ('pallas_dsort' takes no layout, as in JAX);
+per_gaussian occlusion renders in Gaussian chunks on every backend but
+'dense'. With `gauss_group`, `batched_loss_fn` renders a Gaussian shard
+(`parallel/sharding.py` builds the sharded steps on it).
 """
 
 from __future__ import annotations
@@ -63,12 +64,14 @@ from nlos_gaussian_renderer_tpu_torch.models.scene import (
 from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
 from nlos_gaussian_renderer_tpu_torch.ops import random as prng
+from nlos_gaussian_renderer_tpu_torch.ops.fused_dsort import tune_dsort_spec
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import rsort_layout, tune_rsort_spec
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     KERNEL_BACKENDS,
     RSORT_FAMILY,
     RenderSettings,
     check_culling_capacity,
+    gauss_sum,
     mse_loss,
     render_transient,
 )
@@ -81,18 +84,9 @@ GROUP_FIELD = {label: field for field, label in scene_param_labels().items()
                if label in GROUPS}
 # The SGLD normals' first hash lane: apart from the donor draws' lanes 0-3.
 SGLD_LANE0 = 16
-
-
-def not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})"
-    )
-
-
-def check_ported(cfg: Config, optim: OptimizationParams) -> None:
-    """Raise for an option `fit` does not have yet."""
-    if cfg.renderer == "pallas_dsort":
-        raise not_ported("backend 'pallas_dsort'", 9)
+# The backends whose work-list capacities live in `rsort_spec` (w_max and,
+# re-tuned and force-grown as JAX's, max_groups).
+RSPEC_BACKENDS = RSORT_FAMILY + ("pallas_dsort",)
 
 
 # --- optimizer -------------------------------------------------------------------
@@ -298,15 +292,17 @@ class StepAux(NamedTuple):
 def batched_loss_fn(scene: GaussianScene, cams, targets, box_points, c,
                     delta_t, volume_position, active_sh_degree,
                     settings: RenderSettings, optim: OptimizationParams,
-                    layout=None):
+                    layout=None, gauss_group=None):
     """Mean MSE over the (B, 3) scan points (one render each) plus the
     alive-masked regularizers; every render through `layout` (a frozen
-    rsort layout) when given. Returns (loss, StepAux)."""
+    rsort layout) when given. With `gauss_group` the scene is this rank's
+    Gaussian shard: the renders and the regularizers' sums are summed over
+    the group (JAX's `gauss_axis`). Returns (loss, StepAux)."""
     losses, eqs, hists, overflows = [], [], [], []
     for cam, target in zip(cams, targets):
         _, hist, overflow = render_transient(
             scene, cam, box_points, c, delta_t, volume_position,
-            active_sh_degree, settings, layout=layout,
+            active_sh_degree, settings, layout=layout, gauss_group=gauss_group,
         )
         loss, eq = mse_loss(hist, target)
         losses.append(loss)
@@ -316,9 +312,10 @@ def batched_loss_fn(scene: GaussianScene, cams, targets, box_points, c,
     loss = torch.stack(losses).mean()
 
     if optim.regularization:
-        n_alive = torch.clamp(scene.num_alive, min=1.0)
-        op_sum = torch.sum(torch.abs(scene.opacities))
-        sc_sum = torch.sum(torch.abs(scene.scales) * scene.alive[:, None])
+        n_alive, op_sum, sc_sum = gauss_sum(torch.stack([
+            scene.num_alive, torch.sum(torch.abs(scene.opacities)),
+            torch.sum(torch.abs(scene.scales) * scene.alive[:, None])]), gauss_group)
+        n_alive = torch.clamp(n_alive, min=1.0)
         loss = (
             loss
             + optim.opacity_reg * op_sum / n_alive
@@ -366,8 +363,6 @@ def make_train_step(settings: RenderSettings, optim: OptimizationParams,
     schedule at the pre-update step counter (not Adam's count), with normals
     keyed on (seed, step) (`ops.random.normal`; JAX keys
     fold_in(PRNGKey(seed), step))."""
-    if settings.backend == "pallas_dsort":
-        raise not_ported("backend 'pallas_dsort'", 9)
     sgld_lr = expon_lr_schedule_tensor(
         lr_init=optim.position_lr_init,
         lr_final=optim.position_lr_final,
@@ -382,22 +377,32 @@ def make_train_step(settings: RenderSettings, optim: OptimizationParams,
             state.scene, cams, targets, box_points, c, delta_t,
             volume_position, state.active_sh_degree, settings, optim, layout,
         )
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        state.opt_state.tx.update(state.opt_state, params, grads)
+        state.opt_state.tx.update(state.opt_state, params, param_grads(loss, params))
         with torch.no_grad():
             if sgld_lr is not None:
                 sc = state.scene
                 eps = prng.normal(seed, state.step, tuple(sc.means.shape), sc.means.dtype,
                                   lane0=SGLD_LANE0)
                 sc.means.add_(sgld_position_noise(sc, eps, sgld_lr(state.step), optim))
-            state.step.add_(1)
-            bump = (state.step % sh_anneal_interval == 0) & (
-                state.active_sh_degree < max_sh_degree)
-            state.active_sh_degree.add_(bump.to(torch.int32))
+        advance_step(state, max_sh_degree, sh_anneal_interval)
         return aux
 
     return train_step
+
+
+def param_grads(loss, params) -> list:
+    """d loss / d params, zeros for a parameter the loss does not reach."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+@torch.no_grad()
+def advance_step(state: TrainState, max_sh_degree: int, sh_anneal_interval: int) -> None:
+    """The step counter's increment and the SH-degree bump (a device
+    `where`: every `sh_anneal_interval` steps, up to `max_sh_degree`)."""
+    state.step.add_(1)
+    bump = (state.step % sh_anneal_interval == 0) & (state.active_sh_degree < max_sh_degree)
+    state.active_sh_degree.add_(bump.to(torch.int32))
 
 
 def stack_aux(auxs) -> StepAux:
@@ -479,6 +484,10 @@ class ScannedTrainStep:
     from its snapshot rebuilds the layout from the restored state. The
     layout buffers belong to the chunk and are captured with its step.
 
+    `step` replaces the train step (`parallel.sharding` passes its sharded
+    step); `graphs=False` runs the K steps eagerly on the card too (a step
+    whose collectives cannot be captured, gloo's).
+
     Statistics: `captures`, `replays`, `densify_replays`, `layout_replays`
     (layouts built), of every capture `capture_log` (step, densify and
     layout graph seconds), and of the last `capture_s`, `instantiate_s`
@@ -488,11 +497,13 @@ class ScannedTrainStep:
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
                  max_sh_degree: int, sh_anneal_interval: int = 1000, seed: int = 0,
                  densify_seed: Optional[int] = None, ref_cam=None,
-                 layout_slack: float = 0.0):
+                 layout_slack: float = 0.0, step: Optional[Callable] = None,
+                 graphs: bool = True):
         self.settings = settings
         self._optim = optim
-        self._step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval,
-                                     seed)
+        self._step = step or make_train_step(settings, optim, max_sh_degree,
+                                             sh_anneal_interval, seed)
+        self.graphs = graphs
         self.densify_seed = densify_seed if optim.mcmc_densification_flag else None
         self.ref_cam = (None if ref_cam is None or settings.backend not in RSORT_FAMILY
                         else np.asarray(ref_cam, np.float32).reshape(3))
@@ -540,7 +551,7 @@ class ScannedTrainStep:
                  volume_position, step0: Optional[int] = None) -> StepAux:
         k = cams_k.shape[0]
         fires = self._fires(step0, k)
-        if cams_k.device.type == "cpu":
+        if cams_k.device.type == "cpu" or not self.graphs:
             layout = self.layout(state, box_points, c, delta_t)
             self.layout_replays += layout is not None
             auxs = []
@@ -754,12 +765,22 @@ def fit_culling_capacity(settings: RenderSettings, scene, probe_cams, box_points
     `tune_rsort_spec`, with `ref_cam` against one frozen layout from it
     (`layout_slack`), as the chunks of a frozen-layout run render; with
     `grow_only` (the runtime re-tune) the caps only grow, to
-    quarter-power-of-2 buckets. Backends without capacities return the
-    settings unchanged. 'pallas_dsort' is not ported and raises."""
-    if settings.backend == "pallas_dsort":
-        raise not_ported("backend 'pallas_dsort'", 9)
+    quarter-power-of-2 buckets. 'pallas_dsort': `tune_dsort_spec` (no
+    layout, as in JAX), and with `grow_only` the element-wise maxima of
+    `d_max`, `dup_rows` and `w_max` (unbucketed, as JAX's). Backends
+    without capacities return the settings unchanged."""
     dev = scene.means.device
     cams = torch.as_tensor(np.asarray(probe_cams, np.float32), device=dev).reshape(-1, 3)
+    if settings.backend == "pallas_dsort":
+        cur = settings.rsort_spec
+        fitted = tune_dsort_spec(
+            scene, cams, box_points, settings.num_sampling_points, settings.start,
+            settings.end, c, delta_t, base=cur, scaling_modifier=settings.scaling_modifier,
+        )
+        new = cur._replace(d_max=max(cur.d_max, fitted.d_max),
+                           dup_rows=max(cur.dup_rows, fitted.dup_rows),
+                           w_max=max(cur.w_max, fitted.w_max)) if grow_only else fitted
+        return settings._replace(rsort_spec=new), new != cur
     if settings.backend in RSORT_FAMILY:
         cur = settings.rsort_spec
         fitted = tune_rsort_spec(
@@ -815,7 +836,6 @@ def prepare_training(
     kernel backends' capacities are fitted to the initial population on the
     probe scan points (`grow_only=False`), against the frozen layout of
     `layout_reference(data)` when `cfg.frozen_layout` is set."""
-    check_ported(cfg, optim)
     from nlos_gaussian_renderer_tpu_torch.utils.init import init_rand_points
 
     dev = gmath.default_device(device)
@@ -905,7 +925,11 @@ class OverflowGate:
             self.chunk.capture_log = old.capture_log
             self.chunk.launches_per_replay = old.launches_per_replay
         self.retunes += 1
-        if settings.backend in RSORT_FAMILY:
+        if settings.backend == "pallas_dsort":
+            caps = settings.rsort_spec
+            self.retune_caps.append(dict(d_max=caps.d_max, dup_rows=caps.dup_rows,
+                                         w_max=caps.w_max))
+        elif settings.backend in RSORT_FAMILY:
             caps = settings.rsort_spec
             self.retune_caps.append(dict(max_groups=caps.max_groups, w_max=caps.w_max))
         else:
@@ -924,7 +948,7 @@ class OverflowGate:
                                             layout_slack=self._layout_slack)
         if changed:
             self._rebuild(new)
-            if new.backend in RSORT_FAMILY:
+            if new.backend in RSPEC_BACKENDS:
                 caps = new.rsort_spec
                 print("culling capacities re-tuned: "
                       f"max_groups={caps.max_groups} w_max={caps.w_max}")
@@ -933,9 +957,11 @@ class OverflowGate:
         return changed
 
     def force_grow_caps(self, state: TrainState) -> bool:
-        """Grow the rsort-family caps 25% past the fit (the escalation for
-        growth inside a chunk); False for backends without such caps."""
-        if self.settings.backend not in RSORT_FAMILY:
+        """Grow the work-list caps 25% past the fit (the escalation for
+        growth inside a chunk): `max_groups` and `w_max`, on the rsort
+        family and on 'pallas_dsort', whose `d_max` and `dup_rows` JAX
+        leaves as they are; False for backends without such caps."""
+        if self.settings.backend not in RSPEC_BACKENDS:
             return False
         caps = self.settings.rsort_spec
         self._rebuild(self.settings._replace(rsort_spec=caps._replace(

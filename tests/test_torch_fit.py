@@ -228,15 +228,17 @@ def test_port_chunk_equals_k_eager_steps_bit_for_bit(tiny_data, chunk_case):
 
 @pytest.mark.parametrize("kw", [pytest.param(dict(ref_cam=np.zeros(3)), id="kw0")])
 def test_scanned_chunk_options_not_ported_raise(kw):
-    """A chunk of the one backend still to port (with a frozen layout's
-    `ref_cam`, which the rsort family takes) raises when it is built."""
+    """A `pallas_dsort` chunk builds (it raised until the backend was
+    ported) and, as JAX's, ignores a frozen layout's `ref_cam`, which the
+    rsort family takes."""
     from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        ttrain.make_scanned_train_step(RenderSettings(8, 0, 8, backend="pallas_dsort"),
-                                       OptimizationParams(), 1, **kw)
-    ttrain.make_scanned_train_step(RenderSettings(8, 0, 8, backend="pallas_rsort"),
-                                   OptimizationParams(), 1, **kw)
+    dsort = ttrain.make_scanned_train_step(RenderSettings(8, 0, 8, backend="pallas_dsort"),
+                                           OptimizationParams(), 1, **kw)
+    assert dsort.ref_cam is None and dsort.settings.backend == "pallas_dsort"
+    rsort = ttrain.make_scanned_train_step(RenderSettings(8, 0, 8, backend="pallas_rsort"),
+                                           OptimizationParams(), 1, **kw)
+    np.testing.assert_array_equal(rsort.ref_cam, np.zeros(3))
 
 
 def test_train_state_numpy_round_trip(chunk_case):
@@ -450,12 +452,18 @@ def test_force_grow_caps_grows_rsort_caps_only(tiny_data):
     pytest.param(dict(renderer="pallas_dsort"), {}, 9, id="cfg_kw3-optim_kw3-9"),
 ])
 def test_fit_options_not_ported_raise(tiny_data, cfg_kw, optim_kw, item):
+    """The options of ROADMAP.md Queue 1 item `item` (here 9, `pallas_dsort`,
+    which raised until it was ported): `prepare_training` fits their caps
+    and `fit` trains through them, finite and without overflow."""
     _, td = tiny_data
     _, tcfg = configs(td, **cfg_kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {item}"):
-        ttrain.fit(tcfg, OptimizationParams(**optim_kw), td, num_iters=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ttrain.prepare_training(tcfg, OptimizationParams(**optim_kw), td, device="cpu")
+    optim = OptimizationParams(**optim_kw)
+    _, _, settings, _ = ttrain.prepare_training(tcfg, optim, td, device="cpu")
+    assert settings.backend == tcfg.renderer
+    assert settings.rsort_spec.dup_rows > 0 and settings.rsort_spec.d_max >= 3
+    res = ttrain.fit(tcfg, optim, td, num_iters=2, log_every=1, device="cpu")
+    assert res.losses.shape == (2,) and np.all(np.isfinite(res.losses))
+    assert not res.overflow_detected
 
 
 def test_fit_leaves_init_state_and_hands_each_callback_its_own(tiny_data):

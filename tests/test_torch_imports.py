@@ -41,7 +41,10 @@ def test_port_has_the_mirrored_modules():
                 "utils/init.py", "utils/checkpoint.py", "utils/profiling.py",
                 "utils/carving.py", "utils/export.py", "visualize.py", "cli.py",
                 "tools/fitbench.py", "tools/microbench.py", "tools/cullbench.py",
-                "tools/grad_parity.py", "tools/cli_speed_check.py"):
+                "tools/grad_parity.py", "tools/cli_speed_check.py", "ops/fused_dsort.py",
+                "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
+                "parallel/launch.py", "parallel/dryrun.py", "tools/dsortbench.py",
+                "tools/shardbench.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",

@@ -246,7 +246,7 @@ def test_chunked_per_gaussian_gradients_match_jax():
 
 
 @pytest.mark.parametrize("backend", ["analytic", "pallas", "pallas_rsort",
-                                     "pallas_analytic"])
+                                     "pallas_analytic", "pallas_dsort"])
 def test_accelerated_backends_route_per_gaussian_to_the_chunked_field(backend):
     """Every backend but 'dense' renders per_gaussian occlusion with the
     chunked field (JAX's default chunk), overflow constant False, as JAX's
@@ -338,8 +338,8 @@ def test_render_settings_field_order_and_from_config_match_jax():
 
 
 @pytest.mark.parametrize("renderer", ["dense", "analytic", "pallas", "pallas_rsort",
-                                      "pallas_analytic"])
-def test_fit_with_per_gaussian_occlusion_matches_jax(tiny_data, renderer):
+                                      "pallas_analytic", "pallas_dsort"])
+def test_fit_with_per_gaussian_occlusion_matches_jax(tiny_data, renderer, monkeypatch):
     """`fit` with per_gaussian occlusion on every backend (all but 'dense'
     through the chunked field) against JAX's on tests/test_train.py's tiny
     dataset, from one initial state, 20 iterations in chunks of 10: the
@@ -350,6 +350,11 @@ def test_fit_with_per_gaussian_occlusion_matches_jax(tiny_data, renderer):
     from nlos_gaussian_renderer_tpu_torch import train as ttrain
     from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
 
+    from nlos_gaussian_renderer_tpu.ops import fused_dsort as jfd
+
+    # JAX's dsort cull jitted (its caps are tuned on the probes; eagerly it
+    # dispatches ~12 s of small ops a probe).
+    monkeypatch.setattr(jfd, "dsort_cull", jax.jit(jfd.dsort_cull, static_argnums=(7, 8)))
     jd, td = tiny_data
     jcfg, tcfg = configs(jd, renderer=renderer, occlusion=True,
                          occlusion_mode="per_gaussian")

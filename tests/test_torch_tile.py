@@ -288,11 +288,28 @@ def test_fit_culling_capacity_matches_jax(backend, grow_only):
 
 
 @pytest.mark.parametrize("backend,ref_cam", [("pallas_dsort", None)])
-def test_fit_culling_capacity_raises_where_not_ported(backend, ref_cam):
-    ts = scene_from_numpy(scene_np(16, 1), "cpu")
-    st = RenderSettings(num_sampling_points=8, start=60, end=140, backend=backend)
-    with pytest.raises(NotImplementedError):
-        fit_culling_capacity(st, ts, PROBES, T_BOX, C, DT, ref_cam=ref_cam)
+def test_fit_culling_capacity_raises_where_not_ported(backend, ref_cam, monkeypatch):
+    """`pallas_dsort` (which raised until it was ported) tunes: its fitted
+    d_max, dup_rows and w_max equal JAX's on the probes, from the initial
+    fit and as a grow-only re-fit."""
+    from nlos_gaussian_renderer_tpu.ops import fused_dsort as jfd
+
+    # JAX's cull jitted: eagerly it dispatches ~12 s of small ops a probe.
+    monkeypatch.setattr(jfd, "dsort_cull", jax.jit(jfd.dsort_cull, static_argnums=(7, 8)))
+    d = scene_np(16, 1)
+    js, ts = JScene(**{k: jnp.asarray(v) for k, v in d.items()}), scene_from_numpy(d, "cpu")
+    kw = dict(num_sampling_points=8, start=60, end=140, backend=backend)
+    jst = JSettings(**kw, rsort_spec=jfr.RSortSpec(t_theta=2, t_phi=2, ws_pallas=False))
+    st = RenderSettings(**kw, rsort_spec=tfr.RSortSpec(t_theta=2, t_phi=2))
+    for grow_only in (False, True):
+        tnew, tchanged = fit_culling_capacity(st, ts, PROBES, T_BOX, C, DT,
+                                              grow_only=grow_only, ref_cam=ref_cam)
+        jnew, jchanged = j_fit(jst, js, PROBES, J_BOX, C, DT, grow_only=grow_only)
+        assert tchanged == jchanged
+        assert (tnew.rsort_spec.d_max, tnew.rsort_spec.dup_rows, tnew.rsort_spec.w_max) == (
+            jnew.rsort_spec.d_max, jnew.rsort_spec.dup_rows, jnew.rsort_spec.w_max)
+    assert tnew.rsort_spec.dup_rows > 0 and not check_culling_capacity(
+        ts, torch.as_tensor(PROBES[0]), T_BOX, C, DT, tnew)["overflowed"]
 
 
 @pytest.mark.parametrize("v", [0, 1, 7, 63, 64, 65, 96, 127, 128, 129, 161, 200, 643,
