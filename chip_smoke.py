@@ -2117,7 +2117,7 @@ def main() -> int:
               "blocks), zeros elsewhere; second launch equal")
         check(kr["dup_gather_again_equal"] and kr["dup_gather_graph_equal"]
               and kr["dup_gather_vs_index_add_rel_l2"] <= 1e-6,
-              f"DupGather backward (k order, slot table): twice bit for bit, from a CUDA "
+              f"DupGather backward (slot table, one sum): twice bit for bit, from a CUDA "
               f"graph bit for bit; vs one index_add_ max |diff| "
               f"{kr['dup_gather_vs_index_add_max_abs']:.3e}, rel_l2 "
               f"{kr['dup_gather_vs_index_add_rel_l2']:.3e} <= 1e-6")

@@ -26,10 +26,10 @@ the field run on the rsort kernels K1-K4 unchanged.
      `fused_rsort._lists_from_rows` (the `full_perm` cast, K1, K2).
   4. **Field** (`dsort_gaussian_field`): forms and weights gathered with
      `DupGather` into the padded layout, then K3/K4 (`RSortField`). The
-     backward of the gather sums each Gaussian's duplicate rows in k order
-     through a (G, d_max) slot table: no float atomics, so it is the same
-     bit for bit on every run, eagerly and from a CUDA graph (the JAX
-     version's is one scatter-add). K4 writes every row of its output, so
+     backward of the gather reads each Gaussian's duplicate rows through a
+     (G, d_max) slot table and sums them in one fixed-order reduction: no
+     float atomics, so it is the same bit for bit on every run, eagerly
+     and from a CUDA graph (the JAX version's is one scatter-add). K4 writes every row of its output, so
      JAX's `mask_dead_blocks` stays moot here.
 """
 
@@ -204,9 +204,11 @@ def dsort_cull(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
 class DupGather(torch.autograd.Function):
     """Rows `table[full_perm]` (with duplicates) of a (G, F) table into the
     padded layout. Backward: original row i gets the sum of its duplicate
-    rows' cotangents, in duplicate order k = 0 .. d_max - 1, read through
-    the (G, d_max) slot table (`DSortTiles.slots`; the sentinel G_pad reads
-    an appended zero row). Padding slots alias row 0 in the forward and are
+    rows' cotangents, read through the (G, d_max) slot table
+    (`DSortTiles.slots`; the sentinel G_pad reads an appended zero row):
+    one gather and one reduction over the duplicate axis, whose order is
+    fixed by the shapes (no float atomics), so it is bit for bit run to run
+    and from a CUDA graph. Padding slots alias row 0 in the forward and are
     never read back; the kernels give them zero cotangents anyway (word 0).
     The plain form of this backward is one `index_add_` over `full_perm`."""
 
@@ -219,10 +221,7 @@ class DupGather(torch.autograd.Function):
     def backward(ctx, grad):
         (slots,) = ctx.saved_tensors
         gz = torch.cat([grad, grad.new_zeros(1, grad.shape[1])])
-        acc = gz[slots[:, 0]]
-        for k in range(1, slots.shape[1]):
-            acc = acc + gz[slots[:, k]]
-        return acc, None, None
+        return gz[slots].sum(dim=1), None, None
 
 
 dup_gather = DupGather.apply  # JAX's `fused_dsort.dup_gather`

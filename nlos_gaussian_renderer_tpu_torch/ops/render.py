@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene
@@ -155,15 +156,30 @@ def gaussian_pdf(scene: GaussianScene, points, settings: RenderSettings):
     return torch.exp(-0.5 * maha)
 
 
+class GaussSum(torch.autograd.Function):
+    """Forward: the sum of `x` over the ranks of `group` (an all-reduce).
+    Backward: the cotangent unchanged. Every rank of the group computes the
+    same loss from the summed value, so the cotangent is replicated and the
+    derivative of the sum with respect to this rank's term is the identity
+    (JAX's transpose of `psum` under `check_vma=False` sums it instead:
+    `parallel/sharding.py`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = torch.clone(x, memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def gauss_sum(x, gauss_group=None):
     """`x` summed over the Gaussian shards of `gauss_group` (JAX's psum
-    over `gauss_axis`); `x` itself without a group. The backward passes the
-    cotangent through unchanged: it is the same on every rank of the group
-    (`parallel.sharding.GaussSum`)."""
+    over `gauss_axis`, through `GaussSum`); `x` itself without a group."""
     if gauss_group is None:
         return x
-    from nlos_gaussian_renderer_tpu_torch.parallel.sharding import GaussSum
-
     return GaussSum.apply(x, gauss_group)
 
 

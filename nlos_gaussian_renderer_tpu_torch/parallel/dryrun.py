@@ -1,16 +1,19 @@
 """Sharded runs on a local world of processes.
 
-    python -m nlos_gaussian_renderer_tpu_torch.parallel.dryrun [n_procs] [gloo|nccl]
+    python -m nlos_gaussian_renderer_tpu_torch.parallel.dryrun N_PROCS {gloo,nccl} [--device cpu]
 
-`dryrun_multichip(n_procs, backend)` is the counterpart of
+`dryrun_multichip(n_procs, backend, device)` is the counterpart of
 `__graft_entry__.py:dryrun_multichip`: on a (scan, gauss) mesh of n_procs
 ranks (gauss 2 where n_procs is even), one `pallas_rsort` sharded train
 step on the synthetic set (finite loss, step counter 2, no overflow) and
-one sharded densify step (the alive count does not fall).
+one sharded densify step (the alive count does not fall). The backend is
+always named; the ranks' tensors live on the card unless `device` is
+"cpu" (gloo only).
 
-`run_cases(world, backend, mesh_sizes, cases)` runs named cases on one
-world and returns each rank's results as host arrays, which the sharding
-tests and `chip_smoke.py` hold against the single-device step:
+`run_cases(world, backend, mesh_sizes, cases, device=...)` runs named
+cases on one world and returns each rank's results as host arrays, which
+the sharding tests and `chip_smoke.py` hold against the single-device
+step:
 
   - "steps": K sharded steps (or, with `chunk`, one sharded K-step chunk)
     from a state given as host arrays (`train.train_state_to_numpy`'s
@@ -27,7 +30,7 @@ tests and `chip_smoke.py` hold against the single-device step:
 
 from __future__ import annotations
 
-import sys
+import argparse
 import time
 
 import numpy as np
@@ -135,7 +138,8 @@ def run_cases(world: int, backend: str, mesh_sizes, cases: dict, timeout_s: floa
               device=None) -> list:
     """Each rank's {case name: result} (and its mesh "coords" and its kernel
     "launch_counts") of `cases` ({name: {"kind": ..., ...}}) run on one world
-    of `world` processes."""
+    of `world` processes of `backend`, the tensors on the card unless
+    `device` is "cpu" (`make_mesh`)."""
     return spawn(_cases_rank, world, backend, timeout_s,
                  args=(backend, tuple(mesh_sizes), cases, device))
 
@@ -153,14 +157,14 @@ def full_state(shards: list) -> dict:
     )
 
 
-def _dryrun_rank(backend):
+def _dryrun_rank(backend, device):
     from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
     from nlos_gaussian_renderer_tpu_torch.data.synthetic import make_synthetic_dataset
 
     world = dist.get_world_size()
     gauss = 2 if world % 2 == 0 else 1
     scan = world // gauss
-    mesh = make_mesh([scan, gauss], backend=backend)
+    mesh = make_mesh([scan, gauss], backend=backend, device=device)
     data = make_synthetic_dataset(seed=0, scan_m=4, scan_n=4, num_bins=48,
                                   num_gt_gaussians=8, num_sampling_points=8,
                                   device=mesh.device)
@@ -200,13 +204,23 @@ def _dryrun_rank(backend):
                 alive_after=after)
 
 
-def dryrun_multichip(n_procs: int = 4, backend: str = "gloo",
+def dryrun_multichip(n_procs: int, backend: str, device=None,
                      timeout_s: float = 120.0) -> dict:
-    """One sharded step and one sharded densify step on n_procs ranks
-    (gloo on the CPU, or NCCL with a card a rank); rank 0's summary."""
-    return spawn(_dryrun_rank, n_procs, backend, timeout_s, args=(backend,))[0]
+    """One sharded step and one sharded densify step on n_procs ranks of
+    `backend` (NCCL with a card a rank, or gloo), the tensors on the card
+    unless `device` is "cpu"; rank 0's summary."""
+    return spawn(_dryrun_rank, n_procs, backend, timeout_s, args=(backend, device))[0]
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=dryrun_multichip.__doc__)
+    p.add_argument("n_procs", type=int)
+    p.add_argument("backend", choices=("gloo", "nccl"))
+    p.add_argument("--device", default=None,
+                   help="cpu for CPU tensors over gloo (default: the card)")
+    a = p.parse_args(argv)
+    print(dryrun_multichip(a.n_procs, a.backend, a.device))
 
 
 if __name__ == "__main__":
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 4
-    print(dryrun_multichip(n, sys.argv[2] if len(sys.argv) > 2 else "gloo"))
+    main()

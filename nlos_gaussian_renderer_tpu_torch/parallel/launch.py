@@ -45,7 +45,7 @@ def _worker(fn, rank: int, world: int, backend: str, init_file: str, timeout_s: 
         out.put((rank, None, traceback.format_exc()))
 
 
-def spawn(fn: Callable, world: int, backend: str = "gloo", timeout_s: float = 120.0,
+def spawn(fn: Callable, world: int, backend: str, timeout_s: float = 120.0,
           args: Sequence = ()) -> list:
     """[fn(*args) on rank r for r in range(world)]: `world` processes in one
     default group of `backend`, joined within `timeout_s` seconds."""

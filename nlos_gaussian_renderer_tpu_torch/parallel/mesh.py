@@ -8,9 +8,10 @@ summed over it (exact for every mode: each per-sample field is a sum of
 per-Gaussian terms).
 
 Rank r sits at (scan, gauss) = divmod(r, n_gauss), the numpy reshape order
-of JAX's device array. The backend is the caller's choice and is never
-switched: NCCL with one GPU a rank, or gloo (CPU tensors; CUDA tensors
-where the card's build takes them, staged through the host).
+of JAX's device array. The backend and the device are the caller's
+choice and are never switched: NCCL with one GPU a rank, or gloo (CPU
+tensors, or CUDA tensors staged through the host); the rank's tensors
+live on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class Mesh(NamedTuple):
 
 
 def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
-              axis_names: Sequence[str] = ("scan", "gauss"), backend: str = "gloo",
+              axis_names: Sequence[str] = ("scan", "gauss"), *, backend: str,
               device=None) -> Mesh:
     """The mesh over the initialised default group (`launch.spawn` sets it
     up). `axis_sizes` defaults to every rank on `scan`; `backend` must be
@@ -59,8 +60,9 @@ def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
     gauss group, in the same order (`new_group` is collective), and warms
     each group (and the default one) with one all-reduce, so a step's first
     collectives, or its capture into a CUDA graph, find their communicators
-    made. `device` defaults to `cuda:(rank % cards)` on NCCL and the CPU on
-    gloo."""
+    made. `device` defaults to the card `cuda:(rank % cards)`, on either
+    backend (`device="cpu"` for CPU tensors over gloo); without a card
+    that default raises."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(torch.distributed.init_process_group, or launch.spawn)")
@@ -80,8 +82,9 @@ def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
                     for i in range(sizes[0])]
     si, gi = (int(v) for v in np.unravel_index(rank, sizes))
     if device is None:
-        device = (torch.device("cuda", rank % torch.cuda.device_count())
-                  if backend == "nccl" else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' for a mesh of CPU tensors")
+        device = torch.device("cuda", rank % torch.cuda.device_count())
     device = torch.device(device)
     for group in (None, scan_groups[gi], gauss_groups[si]):
         dist.all_reduce(torch.zeros(1, device=device), group=group)

@@ -8,8 +8,8 @@ Port of `nlos_gaussian_renderer_tpu/parallel/sharding.py` over
     averaged over `scan`, one collective a step;
   - the Gaussian rows and their Adam moments are split over the `gauss`
     axis (`shard_scene`); every sum over Gaussians in the renderer and the
-    regularizers is summed over `gauss` (`GaussSum`, at JAX's `gauss_axis`
-    reduction points).
+    regularizers is summed over `gauss` (`ops.render.GaussSum`, at JAX's
+    `gauss_axis` reduction points).
 
 Two departures from the JAX step, both reference caveats there (the JAX
 package stays as it is):
@@ -42,23 +42,6 @@ from nlos_gaussian_renderer_tpu_torch.models.densify import densify_step
 from nlos_gaussian_renderer_tpu_torch.models.scene import FIELD_NAMES, GaussianScene
 from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
 from nlos_gaussian_renderer_tpu_torch.parallel.mesh import Mesh
-
-
-class GaussSum(torch.autograd.Function):
-    """Forward: the sum of `x` over the ranks of `group` (an all-reduce).
-    Backward: the cotangent unchanged. Every rank of the group computes the
-    same loss from the summed value, so the cotangent is replicated and the
-    derivative of the sum with respect to this rank's term is the identity."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        y = torch.clone(x, memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
 
 
 def gather_rows(x, group, n: int, idx: int):

@@ -867,6 +867,23 @@ def prepare_training(
     return scene, tx, settings, box_points
 
 
+def culling_caps(settings: RenderSettings) -> dict:
+    """The culling capacities that `fit_culling_capacity` tunes for the
+    backend: d_max, dup_rows and w_max (pallas_dsort); max_groups and
+    w_max (the rsort family); k_max (pallas)."""
+    if settings.backend == "pallas_dsort":
+        caps = settings.rsort_spec
+        return dict(d_max=caps.d_max, dup_rows=caps.dup_rows, w_max=caps.w_max)
+    if settings.backend in RSORT_FAMILY:
+        caps = settings.rsort_spec
+        return dict(max_groups=caps.max_groups, w_max=caps.w_max)
+    return dict(k_max=settings.tile_spec.k_max)
+
+
+def _caps_text(settings: RenderSettings) -> str:
+    return " ".join(f"{k}={v}" for k, v in culling_caps(settings).items())
+
+
 class OverflowGate:
     """The overflow gate of `fit` (JAX's `retune`, `force_grow_caps` and
     `run_gated`): the current step and chunk builders of `settings`, and the
@@ -925,15 +942,7 @@ class OverflowGate:
             self.chunk.capture_log = old.capture_log
             self.chunk.launches_per_replay = old.launches_per_replay
         self.retunes += 1
-        if settings.backend == "pallas_dsort":
-            caps = settings.rsort_spec
-            self.retune_caps.append(dict(d_max=caps.d_max, dup_rows=caps.dup_rows,
-                                         w_max=caps.w_max))
-        elif settings.backend in RSORT_FAMILY:
-            caps = settings.rsort_spec
-            self.retune_caps.append(dict(max_groups=caps.max_groups, w_max=caps.w_max))
-        else:
-            self.retune_caps.append(dict(k_max=settings.tile_spec.k_max))
+        self.retune_caps.append(culling_caps(settings))
 
     def retune(self, state: TrainState, cams=None) -> bool:
         """Grow the capacities to the state's population on the probes (and
@@ -948,12 +957,7 @@ class OverflowGate:
                                             layout_slack=self._layout_slack)
         if changed:
             self._rebuild(new)
-            if new.backend in RSPEC_BACKENDS:
-                caps = new.rsort_spec
-                print("culling capacities re-tuned: "
-                      f"max_groups={caps.max_groups} w_max={caps.w_max}")
-            else:
-                print(f"culling capacity re-tuned: k_max={new.tile_spec.k_max}")
+            print(f"culling capacities re-tuned: {_caps_text(new)}")
         return changed
 
     def force_grow_caps(self, state: TrainState) -> bool:
@@ -968,9 +972,7 @@ class OverflowGate:
             max_groups=int(caps.max_groups * 1.25) + 1,
             w_max=int(caps.w_max * 1.25) + 1,
         )))
-        print("culling capacities force-grown past the fit: "
-              f"max_groups={self.settings.rsort_spec.max_groups} "
-              f"w_max={self.settings.rsort_spec.w_max}")
+        print(f"culling capacities force-grown past the fit: {_caps_text(self.settings)}")
         return True
 
     def run_gated(self, chunked: bool, state: TrainState, cams, *args, what: str = "",

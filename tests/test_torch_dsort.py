@@ -219,8 +219,8 @@ def test_engulfing_gaussian_not_dropped():
 
 
 def test_dup_gather_backward_matches_index_add_and_jax_vjp():
-    """The duplicate gather's backward (each Gaussian's duplicate rows in k
-    order, through the slot table) against one `index_add_` over
+    """The duplicate gather's backward (each Gaussian's duplicate rows read
+    through the slot table and summed) against one `index_add_` over
     `full_perm` and JAX's `dup_gather` VJP (a scatter-add), 1e-6; the
     padding slots' cotangents are zero, as the kernels leave them."""
     js, ts = both(scene_np(48, 5))
