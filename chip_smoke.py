@@ -19,7 +19,8 @@ the microbenchmarks with the work-list kernel K9, cullbench, and the 100k
 gradient parity of `pallas_rsort` against the chunked dense ground truth;
 then `fit` and the CLI on the Zaragoza artifact, the options (frozen
 layouts, per_gaussian occlusion), `pallas_dsort` (its duplicated lists on
-K1-K4) and the sharded step (`parallel/`: NCCL and gloo worlds on the card).
+K1-K4), the sharded step (`parallel/`: NCCL and gloo worlds on the card),
+and the reference regime's pilot with the last tools.
 
 Phases:
 
@@ -211,7 +212,25 @@ Phases:
      of 2 over gloo with CUDA tensors on the same card, mesh (1, 2): losses
      rtol 1e-4, means rtol 1e-3 / atol 1e-6, and the overflow of the second
      Gaussian shard raised on both ranks; ms/step of each (the gloo one
-     host-staged); every rank's kernel launches join the kernels line.
+     host-staged); every rank's kernel launches join the kernels line;
+ 19. the reference regime and the last tools (`reference_regime_phase`):
+     `tools/long_run.py` at JAX's pilot (2,000 iterations, 32x32 scan
+     points, 384 bins, ns 32, SH degree 3, densified from a carved 2,000
+     toward 100,000, `pallas_rsort` through `fit`'s graphs: logged losses
+     finite and the last below the first, the population grown, no
+     overflow left unreplayed, the last checkpoint restoring the final
+     state bit for bit; its evaluation's overflow re-fits, MSE and
+     Chamfer printed), `export_reconstruction` at 128^3 on that checkpoint
+     (a non-empty mesh; IoU and Chamfer printed), `trace_report
+     --by-source` on one replayed chunk of 10 of its final state (the top
+     five device ops, each charged to a function of the package through an
+     eager trace of the same steps), `analytic_crossover` at k 1 and 4 for
+     both backends (200 iterations; finite, no overflow), `coveragestat`
+     at 100k (the useful pairs on the card equal the CPU's; the slack
+     factors printed), `reconstruct_synthetic --renderer pallas` (K7/K8,
+     200 iterations: finite, the last loss below the first, Chamfer
+     printed) and `scatterbench` at G 100k (the counting rank equal to a
+     stable argsort's); the phase's launches join the kernels line.
      Each phase prints its seconds.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
@@ -242,6 +261,7 @@ from nlos_gaussian_renderer_tpu_torch.tools import (
     VOLUME_POSITION,
     VOLUME_SIZE,
     bench_scene,
+    card_name,
     elapsed_ms,
 )
 
@@ -305,14 +325,6 @@ def rel_l2(a, b):
 def cosine(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     return float(a @ b / (a.norm() * b.norm() + 1e-30))
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
 
 
 def scan_grid_probes() -> np.ndarray:
@@ -630,6 +642,195 @@ def device_profile(run, steps):
             {name: ms / k for name, ms in by_name.items()})
 
 
+PHASE19_DIR = "recon_out/chip_smoke"
+PILOT = ["--iters", "2000", "--scan", "32"]  # JAX's documented pilot of long_run
+CROSSOVER_ITERS = 200
+SYNTHETIC_ITERS = 200
+TRACE_STEPS = 10
+
+
+def trace_chunk(data, cfg, res, dev, out_dir: str, steps: int = TRACE_STEPS, top: int = 5):
+    """(rows, device ms a step): `trace_report --by-source` of one chunk of
+    `steps` replayed from its CUDA graph, from a copy of `fit`'s final state
+    at its final capacities (`cfg`'s regime), its sources from the same
+    steps run eagerly under the stack-recording trace."""
+    import os
+
+    from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
+    from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+    from nlos_gaussian_renderer_tpu_torch.tools import long_run, trace_report
+    from nlos_gaussian_renderer_tpu_torch.train import (
+        clone_state,
+        make_scanned_train_step,
+        make_train_step,
+    )
+    from nlos_gaussian_renderer_tpu_torch.utils.profiling import trace
+
+    settings = long_run.settings_after(cfg, res)
+    optim = OptimizationParams()
+    state = clone_state(res.state)
+    sh = cfg.sh_degree
+    box = gmath.volume_box_points(data.volume_position, data.volume_size, device=dev)
+    vol = torch.as_tensor(data.volume_position, device=dev)
+    l, m, n = data.shape
+    idx = torch.as_tensor(np.random.default_rng(1).integers(0, m * n, steps), device=dev)
+    nlos = torch.as_tensor(data.nlos_data.reshape(l, m * n), device=dev)
+    targets = nlos[cfg.start:cfg.end].T[idx][:, None, :] * cfg.gt_times
+    cams = torch.as_tensor(np.ascontiguousarray(data.camera_grid_positions.T),
+                           device=dev)[idx][:, None, :]
+    consts = (box, data.c, data.deltaT, vol)
+    chunk = make_scanned_train_step(settings, optim, sh)
+    chunk(state, cams, targets, *consts)  # capture
+    torch.cuda.synchronize()
+    rdir, edir = os.path.join(out_dir, "trace_replay"), os.path.join(out_dir, "trace_eager")
+    with trace(rdir):
+        chunk(state, cams, targets, *consts)
+        torch.cuda.synchronize()
+    step = make_train_step(settings, optim, sh)
+    with trace(edir, with_stack=True):
+        for i in range(steps):
+            step(state, cams[i], targets[i], *consts)
+        torch.cuda.synchronize()
+    replay = trace_report.load_trace(rdir)
+    rows = trace_report.report(replay, steps=steps, top=top, by_source=True,
+                               sources_trace=trace_report.load_trace(edir))
+    return rows, sum(trace_report.op_durations(replay).values()) / steps / 1e3
+
+
+def reference_regime_phase(dev, card: str) -> dict:
+    """Phase 19: `long_run` at JAX's pilot, `export_reconstruction` on its
+    last checkpoint, `analytic_crossover` at k 1 and 4, `coveragestat` at
+    100k (card against CPU), `reconstruct_synthetic --renderer pallas`,
+    `scatterbench` at 100k, and `trace_report --by-source` on one replayed
+    `pallas_rsort` chunk. Returns the launch counts of the phase."""
+    import os
+
+    from nlos_gaussian_renderer_tpu_torch.ops import cuda_build
+    from nlos_gaussian_renderer_tpu_torch.tools import (
+        analytic_crossover,
+        coveragestat,
+        export_reconstruction,
+        long_run,
+        reconstruct_synthetic,
+        scatterbench,
+    )
+    from nlos_gaussian_renderer_tpu_torch.train import state_tensors
+
+    t_phase = {}
+    cuda_build.reset_launch_counts()
+    t0 = time.time()
+    ckpt_dir = os.path.join(PHASE19_DIR, "long_run_ckpt")
+    args = long_run.build_argparser().parse_args(
+        PILOT + ["--ckpt-dir", ckpt_dir, "--out", os.path.join(PHASE19_DIR, "long_run.json")])
+    data, gt_scene, gen_s = long_run.make_regime_data(args, dev)
+    record, res = long_run.run(args, data, long_run.alive_centres(gt_scene), gen_s)
+    t_phase["long_run"] = time.time() - t0
+    losses = record["loss_curve_logged"]
+    q = record["final_quality"]
+    check(bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0],
+          f"long_run pilot (2000 iterations, 32x32 scan, 384 bins, densify): {len(losses)} "
+          f"logged losses finite, last {losses[-1]:.5g} below the first {losses[0]:.5g}")
+    check(record["alive_final"] > args.init_gaussians,
+          f"long_run pilot: alive {args.init_gaussians} -> {record['alive_final']} "
+          f"({record['densify_events']} densify events, {record['retunes']} re-tunes, caps "
+          f"{record['retune_caps'][-1:] or 'initial'})")
+    check(not record["overflow_detected"],
+          "long_run pilot: overflow_detected False (every overflow replayed after a re-tune)")
+    ck = os.path.join(ckpt_dir, f"step_{args.iters}")
+    restored = long_run.restore_for(ck, data.volume_position, data.volume_size, args.cap_max,
+                                    3, dev)
+    same = all(torch.equal(a, b) for a, b in zip(state_tensors(restored),
+                                                 state_tensors(res.state)))
+    check(same, f"long_run pilot: {ck} restores the final state bit for bit")
+    log(f"long_run pilot: wall {record['wall_clock_s']:.1f} s, {record['ms_per_iter']:.4f} "
+        f"ms/iter overall, steady {record['steady_ms_per_iter']} ms/iter over "
+        f"{record['steady_window']}, dataset {record['dataset_gen_s']} s, carving "
+        f"{record['carving_init_s']} s, peak {record['peak_device_gib']} GiB, captures "
+        f"{record['chunk_stats'].get('captures')}; eval {record['eval_s']} s with "
+        f"{record['eval_overflow_retunes']} overflow re-fits: transient MSE "
+        f"{q['transient_mse_2048pts']:.6g} (relative {q['transient_mse_relative']:.6g}), "
+        f"Chamfer {q['chamfer_centers_m']:.5f} m; on {card}")
+
+    t0 = time.time()
+    quality = export_reconstruction.main([
+        "--ckpt", ck, "--outdir", PHASE19_DIR, "--mesh-dir", PHASE19_DIR])
+    t_phase["export_reconstruction"] = time.time() - t0
+    check(quality["mesh"]["verts"] > 0 and quality["mesh"]["faces"] > 0,
+          f"export_reconstruction at 128^3 on step {quality['step']}: mesh "
+          f"{quality['mesh']['verts']} verts / {quality['mesh']['faces']} faces, IoU "
+          f"{quality['density_iou_mean_threshold']:.4f}, Chamfer learned->GT "
+          f"{quality['chamfer_learned_to_gt_m']:.5f} m, GT->learned "
+          f"{quality['chamfer_gt_to_learned_m']:.5f} m, symmetric "
+          f"{quality['chamfer_symmetric_m']:.5f} m ({quality['seconds']})")
+
+    # One replayed pallas_rsort chunk of the pilot's final state, its ops by
+    # source from the same steps run eagerly under the stack-recording trace.
+    t0 = time.time()
+    rows, device_ms = trace_chunk(data, long_run.regime_config(args, data)[0], res, dev,
+                                  PHASE19_DIR)
+    t_phase["trace_report"] = time.time() - t0
+    log(f"one replayed chunk of {TRACE_STEPS} of the pilot's final state: device "
+        f"{device_ms:.4f} ms/step, on {card}")
+    for r in rows:
+        log(f"  {r['ms_per_step']:8.4f} ms/step {r['count_per_step']:6.1f}/step  "
+            f"{r['name'][:80]}")
+        for src, share in r["sources"]:
+            log(f"{'':12}{share:6.1%}  {src}")
+    check(len(rows) == 5 and all(r["sources"] and r["sources"][0][0] != "(no frame)"
+                                 for r in rows),
+          "trace_report --by-source on one replayed pallas_rsort chunk of "
+          f"{TRACE_STEPS}: the top five device ops each mapped to a function of the package")
+
+    t0 = time.time()
+    cross = analytic_crossover.main([
+        "--iters", str(CROSSOVER_ITERS), "--rebins", "1,4",
+        "--out", os.path.join(PHASE19_DIR, "analytic_crossover.json")])
+    t_phase["analytic_crossover"] = time.time() - t0
+    for r in cross["rows"]:
+        ev = r["eval_fine"]
+        check(np.isfinite(ev["transient_mse"]) and np.isfinite(ev["chamfer_m"])
+              and not r["overflow"],
+              f"analytic_crossover {r['backend']}@k={r['rebin']} ({CROSSOVER_ITERS} "
+              f"iterations, {r['num_r']} bins): {r['ms_per_iter']:.4f} ms/iter overall, "
+              f"steady {r['steady_ms_per_iter']}, fine MSE rel {ev['transient_mse_rel']:.5g}, "
+              f"Chamfer {ev['chamfer_m']:.5f} m, {r['retunes']} re-tunes, "
+              f"{r['eval_overflow_retunes']} eval re-fits")
+
+    t0 = time.time()
+    cov_card = coveragestat.main([])
+    cov_cpu = coveragestat.main(["--cpu"])
+    t_phase["coveragestat"] = time.time() - t0
+    check(cov_card["useful_pairs"] == cov_cpu["useful_pairs"],
+          f"coveragestat at 100k: useful pairs {cov_card['useful_pairs']:.0f} on the card, "
+          f"{cov_cpu['useful_pairs']:.0f} on the CPU; items {cov_card['items']} / "
+          f"{cov_cpu['items']}; factors (membership, angular, radial) "
+          f"{cov_card['block_membership_slack']:.3f}, {cov_card['angular_slack']:.3f}, "
+          f"{cov_card['radial_slack']:.3f}, over-coverage {cov_card['over_coverage']:.2f} "
+          f"(w_max {cov_card['w_max']}, max_groups {cov_card['max_groups']})")
+
+    t0 = time.time()
+    syn = reconstruct_synthetic.main([
+        "--renderer", "pallas", "--iters", str(SYNTHETIC_ITERS),
+        "--out", os.path.join(PHASE19_DIR, "synthetic")])
+    t_phase["reconstruct_synthetic"] = time.time() - t0
+    check(bool(np.all(np.isfinite(syn["losses"]))) and syn["losses"][-1] < syn["losses"][0]
+          and np.isfinite(syn["chamfer_cloud_m"]),
+          f"reconstruct_synthetic --renderer pallas ({SYNTHETIC_ITERS} iterations): losses "
+          f"{syn['losses'][0]:.5g} -> {syn['losses'][-1]:.5g}, transient MSE rel "
+          f"{syn['transient_mse_relative']:.5g}, Chamfer cloud {syn['chamfer_cloud_m']:.5f} m, "
+          f"mesh {syn['chamfer_mesh_m']:.5f} m, {syn['ms_per_iter']:.3f} ms/iter, {syn['result']}")
+
+    t0 = time.time()
+    sc = scatterbench.run(100_000, dev)
+    t_phase["scatterbench"] = time.time() - t0
+    check(sc["counting_rank_equals_stable_argsort"],
+          "scatterbench at G 100k: the counting rank == a stable argsort's rank; ms from a "
+          "graph of 50: " + ", ".join(f"{k} {v:.5f}" for k, v in sc["ms_graph"].items()))
+    log("phase 19 parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in t_phase.items())
+        + f", on {card}")
+    return dict(counts=cuda_build.launch_counts())
+
+
 def profile_group(name: str) -> str:
     """The item of a device event's kernel name in the profile summary."""
     from nlos_gaussian_renderer_tpu_torch.ops.cuda_build import KERNELS
@@ -673,7 +874,7 @@ def main() -> int:
     )
 
     dev = torch.device("cuda")
-    card = nvidia_smi()
+    card = card_name(dev)
     log(f"card: {card}")
     log(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2209,10 +2410,18 @@ def main() -> int:
         return dict(counts=out["launch_counts"])
 
     shard_out = shard_phase()
+
+    @phase("the reference regime and the last tools (long_run pilot, export_reconstruction, "
+           "trace_report, analytic_crossover, coveragestat, reconstruct_synthetic, "
+           "scatterbench)")
+    def regime_phase():
+        return reference_regime_phase(dev, card)
+
+    regime_out = regime_phase()
     if (failures or None in trained.values() or tools_counts is None or k9_counts is None
             or fit_out is None or dens_out is None or cli_out is None
             or frozen_out is None or occ_out is None or dsort_out is None
-            or shard_out is None
+            or shard_out is None or regime_out is None
             or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
@@ -2224,7 +2433,7 @@ def main() -> int:
                 + sum(r["launch_counts"][k] for r in fit_runs)
                 + sum(c[k] for c in cli_out["launch_counts"].values())
                 + frozen_out["counts"][k] + occ_out["counts"][k] + dsort_out["counts"][k]
-                + shard_out["counts"][k] if k in on_steps
+                + shard_out["counts"][k] + regime_out["counts"][k] if k in on_steps
                 else k9_counts[k] for k in kernel_rows}
     log("launches by CLI run (wrapper calls outside a capture): "
         + json.dumps(cli_out["launch_counts"]))

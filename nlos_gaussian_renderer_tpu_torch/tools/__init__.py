@@ -1,20 +1,35 @@
-"""Measurement tools of the port: the counterparts of the JAX package's
-`tools/microbench.py`, `tools/cullbench.py` and `tools/grad_parity.py`, and
-`schedbench`, which times the rsort schedule's work-list kernels K1/K2.
+"""Tools of the port: the counterparts of the JAX repo's `tools/` and of
+its example scripts, and the port's own benches (`schedbench`,
+`fitbench`, `dsortbench`, `occlusionbench`, `shardbench`).
 
 Each runs on the CUDA card by default and raises where there is none;
-given `device="cpu"` (or `--cpu`) the first three run the kernels' plain
-versions on the CPU, whose times are those of PyTorch's CPU kernels, not of
-the card.
+given `device="cpu"` (or `--cpu`) it runs the kernels' plain versions on
+the CPU, whose times are those of PyTorch's CPU kernels, not of the card.
+The benches that replay CUDA graphs run on the card only.
 
     python -m nlos_gaussian_renderer_tpu_torch.tools.microbench [--rsort] [--cpu]
     python -m nlos_gaussian_renderer_tpu_torch.tools.cullbench [--cpu]
     python -m nlos_gaussian_renderer_tpu_torch.tools.grad_parity [--rows ...] [--fd] [--cpu]
     python -m nlos_gaussian_renderer_tpu_torch.tools.schedbench  (the card only: CUDA graphs)
+    python -m nlos_gaussian_renderer_tpu_torch.tools.long_run [--iters N] [--cpu]
+    python -m nlos_gaussian_renderer_tpu_torch.tools.export_reconstruction --ckpt DIR
+    python -m nlos_gaussian_renderer_tpu_torch.tools.reconstruct_synthetic [--renderer pallas]
+    python -m nlos_gaussian_renderer_tpu_torch.tools.analytic_crossover [--cpu]
+    python -m nlos_gaussian_renderer_tpu_torch.tools.precision_compare [--cpu]
+    python -m nlos_gaussian_renderer_tpu_torch.tools.coveragestat [--cpu]
+    python -m nlos_gaussian_renderer_tpu_torch.tools.scatterbench  (the card only: CUDA graphs)
+    python -m nlos_gaussian_renderer_tpu_torch.tools.trace_report TRACE_DIR [--by-source]
+    python -m nlos_gaussian_renderer_tpu_torch.tools.make_zaragoza_artifact --out PATH
+
+Records go under `docs/torch/`; meshes, figures and checkpoints under
+`recon_out/` (gitignored).
 """
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
 import time
 
 import numpy as np
@@ -44,6 +59,42 @@ def device_name(dev: torch.device) -> str:
     if dev.type == "cuda":
         return f"{torch.cuda.get_device_name(dev)} x{torch.cuda.device_count()}"
     return "cpu"
+
+
+def card_name(dev: torch.device) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (its first line), or
+    'cpu (plain versions)' for a CPU run: what every record names."""
+    if dev.type != "cuda":
+        return "cpu (plain versions)"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if lines else f"{torch.cuda.get_device_name(dev)}, power limit unknown"
+
+
+def chamfer_dirs(a: np.ndarray, b: np.ndarray):
+    """(mean distance from each point of a to b, from each point of b to a)
+    between point sets (N, 3) and (M, 3), in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    return float(np.sqrt(d2.min(1)).mean()), float(np.sqrt(d2.min(0)).mean())
+
+
+def chamfer(a: np.ndarray, b: np.ndarray) -> float:
+    """The symmetric Chamfer distance: the mean of `chamfer_dirs`."""
+    ab, ba = chamfer_dirs(a, b)
+    return (ab + ba) / 2
+
+
+def write_record(path: str, record: dict) -> str:
+    """Write `record` as indented JSON to `path` (its directory made)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+    return path
 
 
 def bench_scene(gaussians=100_000, seed=0, sigma=(0.002, 0.012), device="cuda",

@@ -16,17 +16,20 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[None]:
+def trace(log_dir: str, with_stack: bool = False) -> Iterator[None]:
     """Profile the block (host and, where there is a card, device
     activity) and write `log_dir/trace.json`, a Chrome trace (open it in
-    Perfetto or chrome://tracing)."""
+    Perfetto or chrome://tracing; `tools/trace_report.py` sums it). With
+    `with_stack` the trace also holds the Python frames, from which
+    `trace_report --by-source` maps each op to the function that
+    launched it."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, with_stack=with_stack) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

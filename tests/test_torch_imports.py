@@ -44,7 +44,10 @@ def test_port_has_the_mirrored_modules():
                 "tools/grad_parity.py", "tools/cli_speed_check.py", "ops/fused_dsort.py",
                 "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
                 "parallel/launch.py", "parallel/dryrun.py", "tools/dsortbench.py",
-                "tools/shardbench.py"):
+                "tools/shardbench.py", "tools/long_run.py", "tools/export_reconstruction.py",
+                "tools/reconstruct_synthetic.py", "tools/analytic_crossover.py",
+                "tools/precision_compare.py", "tools/coveragestat.py", "tools/scatterbench.py",
+                "tools/trace_report.py", "tools/make_zaragoza_artifact.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
