@@ -230,7 +230,18 @@ Phases:
      factors printed), `reconstruct_synthetic --renderer pallas` (K7/K8,
      200 iterations: finite, the last loss below the first, Chamfer
      printed) and `scatterbench` at G 100k (the counting rank equal to a
-     stable argsort's); the phase's launches join the kernels line.
+     stable argsort's); the phase's launches join the kernels line;
+ 20. the geometry sweep, reduced (`tools/geomsweep.py`, in this process):
+     K1-K4 at g_tile 512 against their plain versions at phase 3's gates
+     (K3's shared memory, g_tile * 96 bytes = 48 KB, passes the 46 KB line
+     above which `csrc/rsort_fwd.cu` raises the kernel's attribute), then
+     the points `base` and `tiles16x16` at the bench scene and `base` at
+     the proxy (`geomsweep.PROXY_SIGMA`), each with its forward gate (the
+     three probes against chunked dense, < 2.5e-3), a chunk of
+     SWEEP_ITERS from its CUDA graph against the same steps eagerly (bit
+     for bit), no overflow left after its re-tunes, and K3's and K4's
+     share of their bound over the chunk's cameras printed; the points'
+     launches join the kernels line.
      Each phase prints its seconds.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
@@ -250,7 +261,8 @@ import traceback
 import numpy as np
 import torch
 
-from nlos_gaussian_renderer_tpu_torch.tools import schedbench
+from nlos_gaussian_renderer_tpu_torch.tools import kernel_work, schedbench
+from nlos_gaussian_renderer_tpu_torch.tools.kernel_work import cta_work, live_pairs, nbytes
 from nlos_gaussian_renderer_tpu_torch.tools import (
     C_LIGHT,
     DELTA_T,
@@ -277,14 +289,8 @@ PATH_KERNELS = {
 }
 TOOLS_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
 K9_ROW_SHAPE = (4096, 1024)  # (s, w) of the K9 row in the kernels line
+SWEEP_ITERS = 50  # steps of each phase-20 point's chunk
 SCAN_M = SCAN_N = 256
-# Peak rates of one H100 SXM at its 700 W limit: HBM3 bytes/s and non-tensor
-# FP32 FLOP/s (NVIDIA's data sheet), and MUFU (SFU) results/s: 16 per SM per
-# clock (CUDA C++ Programming Guide, throughput table, compute capability
-# 9.0) x 132 SMs x 1.98 GHz boost.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-MUFU_PER_S = 16 * 132 * 1.98e9
 
 failures: list = []
 
@@ -427,129 +433,13 @@ def density_plain_f64(scene, points, res: int, blk: int = 4):
     return dens.reshape(-1).numpy(), grad.reshape(-1, 3).numpy(), pairs
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def bound(name, work, n_bytes, flops, mufu):
-    """Roofline bound of one launch: the larger of its bytes over HBM
-    bandwidth and its FP32 operations / MUFU transcendentals over their peak
-    rates. Logs the work count; returns (bound_ms, bound_by, what)."""
-    times = {"bytes": n_bytes / HBM_BYTES_PER_S, "fp32": flops / FP32_FLOP_PER_S,
-             "mufu": mufu / MUFU_PER_S}
-    what = max(times, key=times.get)
-    ms = times[what] * 1e3
+    """Roofline bound of one launch (`kernel_work.roofline`); logs the work
+    count. Returns (bound_ms, bound_by, what)."""
+    ms, by, what = kernel_work.roofline(n_bytes, flops, mufu)
     log(f"{name}: work {work}, {n_bytes / 1e6:.3f} MB, {flops:.4g} FP32 ops, "
         f"{mufu:.4g} MUFU ops -> bound {ms:.6f} ms ({what})")
-    return ms, ("bytes" if what == "bytes" else "operations"), what
-
-
-def k5_unit_bins(fwd, n_items, geo):
-    """(units,) float64: the (item, bin) pairs each K5 unit covers, from the
-    plain schedule (a unit's (row, bin, ray) triples are g_tile * S_ang
-    times as many)."""
-    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
-    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
-
-    u_f = fa.AN_FWD_SLAB_BINS
-    n = int(n_items[0])
-    sched = fr._fwd_groups_plain(fwd, n_items, geo, fa.AN_FWD_GROUP_ITEMS, u_f).long()
-    ng = int((sched[2] != fr._DEAD_KEY).sum())
-    items = torch.arange(n)
-    group = torch.searchsorted(sched[0, :ng], items, right=True) - 1
-    g_lo = sched[3][group]
-    bl, bh = fwd[4, :n].long(), fwd[5, :n].long()
-    k_lo, k_hi = (bl - g_lo) // u_f, (bh - g_lo) // u_f
-    cnt = k_hi - k_lo + 1
-    it = torch.repeat_interleave(items, cnt)
-    k = torch.repeat_interleave(k_lo - (torch.cumsum(cnt, 0) - cnt), cnt) + torch.arange(
-        it.shape[0])
-    b0 = g_lo[it] + k * u_f
-    bins = torch.minimum(bh[it], b0 + u_f - 1) - torch.maximum(bl[it], b0) + 1
-    return torch.bincount(sched[5][group[it]] + k, weights=bins.double(),
-                          minlength=int(sched[5, -1]))
-
-
-def bwd_unit_bins(bwd, n_items, unit_bins):
-    """(units,) float64: the bins each K4 or K6 unit covers."""
-    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
-
-    off = fr._bwd_unit_offsets_plain(bwd, n_items, unit_bins)
-    _, lo, hi = fr.bwd_units(off, bwd, unit_bins)
-    return (hi - lo + 1).double()
-
-
-def live_pairs(an, lists, n_items, geo, c):
-    """(items,) float64: each item's (member row, ray) pairs whose
-    exp(-phi/2) is nonzero in f32, from the plain version's section terms
-    (`fused_analytic._section_terms`). Every other pair adds exact zeros to
-    the K5 output and to K6's A0, S1, S2 and dw, so the functions need no
-    edge of it."""
-    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
-
-    out = [torch.zeros(0, dtype=torch.float64, device=lists.device)]
-    for i0, i1 in fa._batches(int(n_items[0]), geo):
-        _, _, (qa, qb, qc), _, memb, *_ = fa._an_items(*an, lists, i0, i1, geo, c)
-        eh = fa._section_terms(qa, qb, qc)[3]
-        out.append(((eh != 0) & memb[..., None]).sum((1, 2)).double())
-    return torch.cat(out)
-
-
-def cta_work(fwd, bwd, n_items, geo):
-    """(row, sample) pairs each CTA of K3 and K4, and (row, bin, ray)
-    triples each CTA of K5 and K6 walks, from the work lists: {scheme:
-    tensor over the CTAs with work}. 'before' is the schedule K3/K4 had
-    before their work units (K4 one CTA per Gaussian block; K3 one CTA per
-    (tile, slice) walking the tile's items that touch the slice), which K6
-    and K5 kept until theirs; 'units' the present one (K4 one CTA per
-    (unit, 256-row chunk); K3 one CTA per (group, slice) unit; K6 as K4 at
-    its own unit width; K5 one CTA per (group, slab) unit, 128 rays)."""
-    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
-    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
-
-    n = int(n_items[0])
-    fwd, bwd = fwd.cpu(), bwd.cpu()
-    s_ang, gt = geo.s_ang, geo.g_tile
-    s_tot = s_ang * geo.t_chunk
-    out = {}
-    samples = (bwd[5, :n] - bwd[4, :n] + 1).double() * s_ang
-    per_block = torch.bincount(bwd[2, :n].long(), weights=samples)
-    out["K4 before"] = per_block[per_block > 0] * gt
-    for k, u_b in (("K4", fr.BWD_UNIT_BINS), ("K6", fa.AN_BWD_UNIT_BINS)):
-        out[f"{k} units"] = (bwd_unit_bins(bwd, n_items.cpu(), u_b) * s_ang
-                             * min(gt, 256)).repeat(fr._cdiv(gt, 256))
-
-    def slices_of(items):
-        """(item, slice) pairs: the slices each item's bins touch."""
-        s_lo = fwd[4, items].long() * s_ang // fr.FWD_SLICE
-        s_hi = ((fwd[5, items].long() + 1) * s_ang - 1) // fr.FWD_SLICE
-        cnt = s_hi - s_lo + 1
-        it = torch.repeat_interleave(items, cnt)
-        first = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
-        return it, torch.repeat_interleave(s_lo, cnt) + torch.arange(it.shape[0]) - first
-
-    def pairs(slc):
-        return (torch.clamp(s_tot - slc * fr.FWD_SLICE, max=fr.FWD_SLICE) * gt).double()
-
-    items = torch.arange(n)
-    it, slc = slices_of(items)
-    n_sl = fr._cdiv(s_tot, fr.FWD_SLICE)
-    key = fwd[0, it].long() * geo.n_ch + fwd[1, it].long()
-    cta = key * n_sl + slc
-    uniq, cnt = torch.unique(cta, return_counts=True)
-    out["K3 before"] = cnt.double() * pairs(uniq % n_sl)
-    sched = fr._fwd_groups_plain(fwd, n_items.cpu(), geo, fr.FWD_GROUP_ITEMS).long()
-    n_groups = int((sched[2] != fr._DEAD_KEY).sum())
-    group = torch.searchsorted(sched[0, :n_groups], it, right=True) - 1
-    unit = sched[5][group] + slc - sched[3][group]
-    n_units = int(sched[5, -1])
-    per_unit = torch.bincount(unit, minlength=n_units)
-    _, u_slc = fr.fwd_units(sched)
-    out["K3 units"] = (per_unit.double() * pairs(u_slc))[per_unit > 0]
-
-    bins = k5_unit_bins(fwd, n_items.cpu(), geo)
-    out["K5 units"] = bins[bins > 0] * gt * s_ang
-    return out
+    return ms, by, what
 
 
 def field_work(xt, gt, counts, rec, prec, shape):
@@ -1004,16 +894,12 @@ def main() -> int:
 
         # Work of the field kernels K3-K6: member rows of each item, its
         # bins, and the tile's rays.
-        words = tiles.words.reshape(kb, sp.g_tile)
-        lists = tiles.fwd[:, :n_items].long()
-        memb = fr._member_of(words[lists[2]], lists[0][:, None], n_tt, n_pt)
-        rows_it = memb.sum(1).double()
-        bins_it = (lists[5] - lists[4] + 1).double()
         s_ang = sp.t_theta * sp.t_phi
-        row_rays = float((rows_it * s_ang).sum())
-        triples = float((rows_it * bins_it * s_ang).sum())
         c = w.shape[1]
         geo = fr.RSortGeometry(n_tt, n_pt, n_ch, sp.t_chunk, sp.g_tile, s_ang, sp.t_phi)
+        fw = kernel_work.rsort_field_work(tiles.words, tiles.fwd, tiles.n_items, geo,
+                                          tiles.table.shape[1], c)
+        row_rays, triples = fw["row_rays"], fw["pairs"]
         work = cta_work(tiles.fwd, tiles.bwd, tiles.n_items, geo)
         sizes = {"K3": f"I {fr.FWD_GROUP_ITEMS}", "K4": f"U {fr.BWD_UNIT_BINS}",
                  "K5": f"I {fa.AN_FWD_GROUP_ITEMS}, U {fa.AN_FWD_SLAB_BINS}",
@@ -1045,13 +931,11 @@ def main() -> int:
                                                       fr.FWD_GROUP_ITEMS)),
               f"K3 schedule built on the card == plain builder{tag}")
         check(torch.equal(k3(), o3), f"K3 second launch equals the first bit for bit{tag}")
-        # Per (row, sample) pair: the 10-term form, the exp, C multiply-adds.
         rows["rsort_fwd"] = dict(
             max_abs_err=float((o3 - r3).abs().max()), rel_l2=e3,
             ms=cuda_time(k3, 20), plain_ms=cuda_time(p3, 3),
             bound=bound(f"rsort_fwd{tag}", f"{triples:.4g} (row, sample) pairs",
-                        nbytes(xfeat, centers, table, wflat, tiles.fwd, o3),
-                        triples * 2 * (10 + c), triples))
+                        *fw["rsort_fwd"]))
 
         gen = torch.Generator(device=dev).manual_seed(0)
         go = torch.randn(o3.shape, generator=gen, device=dev)
@@ -1069,13 +953,11 @@ def main() -> int:
         e4 = rel_l2(o4[visited], r4[visited])
         check(e4 <= 1e-4, f"K4 rsort_bwd rel_l2 {e4:.3e} <= 1e-4 (visited blocks){tag}")
         check(bool((o4[~visited] == 0).all()), f"K4 leaves unvisited blocks zero{tag}")
-        # Per pair: the form, the exp, and the rank-C Z accumulation.
         rows["rsort_bwd"] = dict(
             max_abs_err=float((o4 - r4).abs().max()), rel_l2=e4,
             ms=cuda_time(k4, 20), plain_ms=cuda_time(p4, 3),
             bound=bound(f"rsort_bwd{tag}", f"{triples:.4g} (row, sample) pairs",
-                        nbytes(xfeat, centers, table, wflat, tiles.bwd, go, o4),
-                        triples * (20 + 22 * c), triples))
+                        *fw["rsort_bwd"]))
         return rows, dict(grid=grid, w=w, gfeat=gfeat, tiles=tiles, geo=geo, table=table,
                           wflat=wflat, visited=visited, row_rays=row_rays,
                           triples=triples, c=c, gen=gen)
@@ -2418,10 +2300,49 @@ def main() -> int:
         return reference_regime_phase(dev, card)
 
     regime_out = regime_phase()
+
+    @phase("the geometry sweep, reduced (K1-K4 at g_tile 512 vs plain; base and tiles16x16 "
+           "at the bench scene, base at the proxy)")
+    def sweep_phase():
+        from nlos_gaussian_renderer_tpu_torch.tools import geomsweep
+
+        sp512 = fr.tune_rsort_spec(scene, PROBE_CAMS, box, NS, START, END, C_LIGHT, DELTA_T,
+                                   base=base_spec._replace(g_tile=512))
+        rows, _ = rsort_kernels(sp512, " (g_tile 512)")
+        log_rows(rows, " (g_tile 512)")
+        counts = dict.fromkeys(cuda_build.KERNELS, 0)
+        for scene_name, name in (("bench", "base"), ("bench", "tiles16x16"), ("proxy", "base")):
+            spec = geomsweep.point_spec(geomsweep.POINTS[name][0], scene_name)
+            cuda_build.reset_launch_counts()
+            rec = geomsweep.run_point(spec, SWEEP_ITERS, dev, coverage=False)
+            got = cuda_build.launch_counts()
+            counts = {k: counts[k] + got[k] for k in counts}
+            t, b = rec["timing"], rec["bounds"]
+            check(rec["ok"] and all(got[k] > 0 for k in geomsweep.STEP_KERNELS),
+                  f"sweep {scene_name} {name} (sigma {spec['sigma_min']}-{spec['sigma_max']} m, "
+                  f"{spec['t_theta']}x{spec['t_phi']} rays, g_tile {spec['g_tile']}, t_chunk "
+                  f"{spec['t_chunk']}): forward rel_l2 "
+                  f"{max(rec['forward_gate']['rel_l2']):.3e} < 2.5e-3, replay == eager "
+                  f"{rec['replay_vs_eager']['equal']}, re-tunes {rec['retunes']}, overflow "
+                  f"{rec['overflow_detected']}, caps {rec['caps']}, failures "
+                  f"{rec['failures']}; launches {got}")
+            log(f"sweep {scene_name} {name}: {min(t['host_ms_per_step']):.4f} ms/step host, "
+                f"device {t['device_ms_per_step']:.4f} (busy {t['busy']:.3f}, "
+                f"{t['events_per_step']:.1f} events), K3 {t['kernels']['rsort_fwd']['ms_per_step']:.4f}"
+                f" ms/step at {b['rsort_fwd']['share']:.3f} of its bound "
+                f"{b['rsort_fwd']['bound_ms_per_step']:.4f}, K4 "
+                f"{t['kernels']['rsort_bwd']['ms_per_step']:.4f} at {b['rsort_bwd']['share']:.3f} "
+                f"of {b['rsort_bwd']['bound_ms_per_step']:.4f} ({b['pairs_per_step']:.4g} pairs "
+                f"a step, {rec['n_items']:.1f} items), K3 + K4 "
+                f"{t['k3_k4_share_of_device']:.3f} of the device step, peak "
+                f"{rec['peak_mib']:.0f} MiB, on {card}")
+        return counts
+
+    sweep_out = sweep_phase()
     if (failures or None in trained.values() or tools_counts is None or k9_counts is None
             or fit_out is None or dens_out is None or cli_out is None
             or frozen_out is None or occ_out is None or dsort_out is None
-            or shard_out is None or regime_out is None
+            or shard_out is None or regime_out is None or sweep_out is None
             or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
@@ -2433,7 +2354,8 @@ def main() -> int:
                 + sum(r["launch_counts"][k] for r in fit_runs)
                 + sum(c[k] for c in cli_out["launch_counts"].values())
                 + frozen_out["counts"][k] + occ_out["counts"][k] + dsort_out["counts"][k]
-                + shard_out["counts"][k] + regime_out["counts"][k] if k in on_steps
+                + shard_out["counts"][k] + regime_out["counts"][k] + sweep_out[k]
+                if k in on_steps
                 else k9_counts[k] for k in kernel_rows}
     log("launches by CLI run (wrapper calls outside a capture): "
         + json.dumps(cli_out["launch_counts"]))

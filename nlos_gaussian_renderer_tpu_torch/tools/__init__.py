@@ -1,6 +1,7 @@
 """Tools of the port: the counterparts of the JAX repo's `tools/` and of
 its example scripts, and the port's own benches (`schedbench`,
-`fitbench`, `dsortbench`, `occlusionbench`, `shardbench`).
+`fitbench`, `dsortbench`, `occlusionbench`, `shardbench`); `kernel_work`
+counts the field kernels' work and roofline bounds.
 
 Each runs on the CUDA card by default and raises where there is none;
 given `device="cpu"` (or `--cpu`) it runs the kernels' plain versions on
@@ -20,6 +21,7 @@ The benches that replay CUDA graphs run on the card only.
     python -m nlos_gaussian_renderer_tpu_torch.tools.scatterbench  (the card only: CUDA graphs)
     python -m nlos_gaussian_renderer_tpu_torch.tools.trace_report TRACE_DIR [--by-source]
     python -m nlos_gaussian_renderer_tpu_torch.tools.make_zaragoza_artifact --out PATH
+    python -m nlos_gaussian_renderer_tpu_torch.tools.geomsweep [--points ...] [--scene ...] [--cpu]
 
 Records go under `docs/torch/`; meshes, figures and checkpoints under
 `recon_out/` (gitignored).

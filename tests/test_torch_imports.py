@@ -47,7 +47,8 @@ def test_port_has_the_mirrored_modules():
                 "tools/shardbench.py", "tools/long_run.py", "tools/export_reconstruction.py",
                 "tools/reconstruct_synthetic.py", "tools/analytic_crossover.py",
                 "tools/precision_compare.py", "tools/coveragestat.py", "tools/scatterbench.py",
-                "tools/trace_report.py", "tools/make_zaragoza_artifact.py"):
+                "tools/trace_report.py", "tools/make_zaragoza_artifact.py",
+                "tools/geomsweep.py", "tools/kernel_work.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",

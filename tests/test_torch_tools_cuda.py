@@ -1,5 +1,5 @@
 """The last tools on the card: `long_run`, its overflow-safe evaluation,
-`coveragestat`, `scatterbench` and `trace_report --by-source`.
+`coveragestat`, `scatterbench`, `trace_report --by-source` and `geomsweep`.
 
 Marked `cuda`: each test skips (from its fixture) where no GPU is present.
 On the card: `python -m pytest tests/test_torch_tools_cuda.py -m cuda
@@ -10,7 +10,9 @@ card and renders what fitted ones render (rtol 1e-5); `coveragestat`'s
 useful pairs at 2,000 Gaussians equal the CPU's; the counting rank equals
 a stable argsort's on the card; a traced eager `pallas_rsort` step
 charges K3's and K4's device events to their launchers in
-`ops/fused_rsort.py`."""
+`ops/fused_rsort.py`; `geomsweep` runs two points at 5,000 Gaussians, each
+in its own process: both gates hold, and K1-K4's profiled ms and K3's and
+K4's share of their bound are read."""
 
 import dataclasses
 
@@ -23,6 +25,7 @@ from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
 from nlos_gaussian_renderer_tpu_torch.tools import (
     bench_scene,
     coveragestat,
+    geomsweep,
     long_run,
     scatterbench,
     trace_report,
@@ -108,3 +111,17 @@ def test_trace_by_source_charges_k3_k4_to_their_launchers(dev, tmp_path):
     assert fwd and bwd
     for name in fwd + bwd:
         assert all("ops/fused_rsort.py" in s for s in src[name]), src[name]
+
+
+def test_geomsweep_two_points_on_the_card(dev, tmp_path):
+    rec = geomsweep.main(["--points", "a:gaussians=5000", "b:gaussians=5000,t_theta=16,t_phi=16",
+                          "--scene", "bench", "--iters", "10", "--out",
+                          str(tmp_path / "gs.json")])
+    assert rec["ok"] and rec["card"].startswith(torch.cuda.get_device_name(0))
+    for p in rec["points"]:
+        assert p["replay_vs_eager"]["equal"] and max(p["forward_gate"]["rel_l2"]) < 2.5e-3
+        t = p["timing"]
+        assert t["device_ms_per_step"] > 0 and 0 < t["busy"] <= 1.5
+        assert all(t["kernels"][k]["events_per_step"] >= 1 for k in geomsweep.STEP_KERNELS)
+        for k in geomsweep.FIELD_KERNELS:
+            assert 0 < p["bounds"][k]["share"] <= 1
