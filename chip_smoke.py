@@ -24,7 +24,7 @@ and the reference regime's pilot with the last tools.
 
 Phases:
 
-  1. build the nine CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
+  1. build the ten CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
   2. fit the capacities (rsort caps on the bench's three probe cameras; the
      tile `k_max` from 2048 by doubling on the corners and middle of the
      256x256 scan grid);
@@ -35,7 +35,9 @@ Phases:
      on rows below each tile's count and exactly 0 past it), time both with
      CUDA events, and print each kernel's work count and roofline bound
      (K5/K6 past the section head: only the (row, ray) pairs whose
-     exp(-phi/2) is nonzero, counted from the plain section terms);
+     exp(-phi/2) is nonzero, counted from the plain section terms), and
+     the tracing counter `listed_pairs` on K3's lists (exactly its plain
+     version's count and K3's pairs; a second launch adds as much again);
      then K1-K4 once more, at the spec the tools tune (t_chunk 32, gate_bins
      4: seven radial chunks), and K1/K2 at `RSortSpec`'s default t_chunk 8
      (25 chunks), with the same gates (the kernels line keeps the train
@@ -241,7 +243,13 @@ Phases:
      SWEEP_ITERS from its CUDA graph against the same steps eagerly (bit
      for bit), no overflow left after its re-tunes, and K3's and K4's
      share of their bound over the chunk's cameras printed; the points'
-     launches join the kernels line.
+     launches join the kernels line;
+ 21. the port's tracing (`utils/profiling`) on a chunked `fit` of
+     TRACED_ITERS at 100k on the Zaragoza artifact: one `listed_pairs`
+     launch a replay beside phase 12's, the host counters equal to `fit`'s
+     statistics, one `gate.overflow_read` under each `fit.chunk`, spans
+     nested, `cull.listed_pairs` counted; its launches give the kernels
+     line's `listed_pairs` row.
      Each phase prints its seconds.
 
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
@@ -253,6 +261,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -290,6 +299,7 @@ PATH_KERNELS = {
 TOOLS_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
 K9_ROW_SHAPE = (4096, 1024)  # (s, w) of the K9 row in the kernels line
 SWEEP_ITERS = 50  # steps of each phase-20 point's chunk
+TRACED_ITERS = 100  # steps of the traced fit (two chunks of 50)
 SCAN_M = SCAN_N = 256
 
 failures: list = []
@@ -958,6 +968,26 @@ def main() -> int:
             ms=cuda_time(k4, 20), plain_ms=cuda_time(p4, 3),
             bound=bound(f"rsort_bwd{tag}", f"{triples:.4g} (row, sample) pairs",
                         *fw["rsort_bwd"]))
+
+        # The tracing counter `cull.listed_pairs` on the same lists: exact
+        # against its plain version and K3's pairs; a second launch adds
+        # as much again.
+        total = torch.zeros(1, dtype=torch.int64, device=dev)
+        kc = lambda: fr.listed_pairs(tiles.fwd, tiles.n_items, wflat, geo, total)
+        pc = lambda: fr._listed_pairs_plain(tiles.fwd, tiles.n_items, wflat, geo)
+        kc()
+        one, plain_c = int(total), int(pc())
+        kc()
+        check(one == plain_c == int(triples) > 0 and int(total) == 2 * plain_c,
+              f"listed_pairs == plain == K3's pairs (exact): {one} / {plain_c} / "
+              f"{int(triples)}, two launches {int(total)}{tag}")
+        rows["listed_pairs"] = dict(
+            max_abs_err=float(abs(one - plain_c)), ms=cuda_time(kc, 20),
+            plain_ms=cuda_time(pc, 3),
+            # Each item's four list entries and its block's g_tile words
+            # (gathered), n_items, and the counter read and written.
+            bound=bound(f"listed_pairs{tag}", f"{n_items} items, {plain_c:.4g} pairs",
+                        n_items * 4 * (4 + sp.g_tile) + 4 + 16, 0, 0))
         return rows, dict(grid=grid, w=w, gfeat=gfeat, tiles=tiles, geo=geo, table=table,
                           wflat=wflat, visited=visited, row_rays=row_rays,
                           triples=triples, c=c, gen=gen)
@@ -2339,14 +2369,61 @@ def main() -> int:
         return counts
 
     sweep_out = sweep_phase()
+
+    @phase("the port's tracing on a chunked fit (Zaragoza artifact, 100k, pallas_rsort)")
+    def tracing_phase():
+        from nlos_gaussian_renderer_tpu_torch.tools import fitbench
+        from nlos_gaussian_renderer_tpu_torch.utils import profiling
+
+        data = fitbench.load_zaragoza256_data(os.path.normpath(fitbench.ARTIFACT))
+        profiling.reset()
+        profiling.enable_tracing(True)
+        try:
+            res, sec, _, counts = fitbench.timed_fit(fitbench.config(data), OptimizationParams(),
+                                                     data, TRACED_ITERS, dev)
+            snap = profiling.snapshot()
+        finally:
+            profiling.enable_tracing(False)
+            profiling.reset()
+        st, n, spans = res.chunk_stats, snap["counters"], snap["spans"]
+        per = st["launches_per_replay"]
+        base = {} if fit_out is None else fit_out["chunked"]["chunk_stats"]["launches_per_replay"]
+        check(per.get("listed_pairs") == 1
+              and {k: v for k, v in per.items() if k != "listed_pairs"} == base,
+              f"traced chunked fit: launches a replay {per}, untraced {base}")
+        mine = dict(captures=n.get("chunk.captures", 0), replays=n.get("chunk.replays", 0),
+                    retunes=n.get("gate.retunes", 0))
+        theirs = dict(captures=st["captures"], replays=st["replays"], retunes=res.retunes)
+        check(mine == theirs and st["replays"] >= TRACED_ITERS,
+              f"traced chunked fit: host counters {mine} == fit's statistics {theirs}")
+        chunks = [i for i, s in enumerate(spans) if s["name"] == "fit.chunk"]
+        reads = [sum(1 for s in spans if s["parent"] == i and s["name"] == "gate.overflow_read")
+                 for i in chunks]
+        nested = all(s["parent"] < 0 or spans[s["parent"]]["start"] <= s["start"]
+                     <= s["end"] <= spans[s["parent"]]["end"] for s in spans)
+        check(len(chunks) >= TRACED_ITERS // 50 and set(reads) == {1} and nested,
+              f"traced chunked fit: {len(spans)} spans, {len(chunks)} fit.chunk spans, each "
+              f"with {sorted(set(reads))} gate.overflow_read, nested {nested}")
+        listed = n.get("cull.listed_pairs", 0)
+        check(listed > 0 and counts["listed_pairs"] > 0,
+              f"traced chunked fit: cull.listed_pairs {listed} over {st['replays']} replays "
+              f"and the warm-up steps ({listed / st['replays']:.4g} a replay, warm-ups "
+              f"included), {counts['listed_pairs']} wrapper calls outside a capture, "
+              f"{1e3 * sec / TRACED_ITERS:.4f} ms/step overall, on {card}")
+        return dict(counts=counts, chunk_stats=st)
+
+    trace_out = tracing_phase()
     if (failures or None in trained.values() or tools_counts is None or k9_counts is None
             or fit_out is None or dens_out is None or cli_out is None
             or frozen_out is None or occ_out is None or dsort_out is None
             or shard_out is None or regime_out is None or sweep_out is None
-            or len(kernel_rows) != len(cuda_build.KERNELS)):
+            or trace_out is None or len(kernel_rows) != len(cuda_build.KERNELS)):
         log(f"chip_smoke FAILED: {failures}")
         return 1
     on_steps = {k for ks in PATH_KERNELS.values() for k in ks}
+    # K9 runs in its microbenchmark only, listed_pairs only while tracing.
+    off_steps = dict(worklist_add=k9_counts["worklist_add"],
+                     listed_pairs=trace_out["counts"]["listed_pairs"])
     fit_runs = ([fit_out[r] for r in ("chunked", "per_step", "pallas_analytic", "pallas")]
                 + [dens_out[r] for r in ("chunked", "per_step", "pallas_analytic")])
     fit_runs += frozen_out["fits"]
@@ -2356,15 +2433,17 @@ def main() -> int:
                 + frozen_out["counts"][k] + occ_out["counts"][k] + dsort_out["counts"][k]
                 + shard_out["counts"][k] + regime_out["counts"][k] + sweep_out[k]
                 if k in on_steps
-                else k9_counts[k] for k in kernel_rows}
+                else off_steps[k] for k in kernel_rows}
     log("launches by CLI run (wrapper calls outside a capture): "
         + json.dumps(cli_out["launch_counts"]))
     # Launches a step of the fit path: in the graph of one step.
     fit_per_step = dict.fromkeys(kernel_rows, 0)
-    for r in (fit_out["chunked"], fit_out["pallas_analytic"], fit_out["pallas"]):
-        for k, n in r["chunk_stats"]["launches_per_replay"].items():
+    for st in (fit_out["chunked"]["chunk_stats"], fit_out["pallas_analytic"]["chunk_stats"],
+               fit_out["pallas"]["chunk_stats"], trace_out["chunk_stats"]):
+        for k, n in st["launches_per_replay"].items():
             fit_per_step[k] = fit_per_step[k] or n
-    # A kernel on no train step (K9) launches 0 times a step.
+    # A kernel on no eager train step (K9; listed_pairs, as these run with
+    # tracing off) launches 0 times a step.
     per_step = dict.fromkeys(kernel_rows, 0)
     for backend, (counts, _, calls) in trained.items():
         for k in PATH_KERNELS[backend]:

@@ -8,7 +8,8 @@ flags, so an edited kernel is never served stale. There is no fallback: a
 missing `nvcc` or a failed build raises.
 
 `KERNELS` registers every kernel of the port (its source, the TPU kernel it
-replaces, its launch count); the wrappers in `ops/fused*.py` and
+replaces, its launch count; `listed_pairs`, the tracing counter of
+`utils/profiling`, replaces none); the wrappers in `ops/fused*.py` and
 `tools/microbench.py` launch through it and check their tensors with
 `check_tensor`.
 """
@@ -24,6 +25,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from nlos_gaussian_renderer_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -44,6 +47,7 @@ SIGNATURES = {
     "field_fwd": [_P] * 10 + [_I] * 9 + [_P],
     "field_bwd": [_P] * 11 + [_I] * 8 + [_P],
     "worklist_add": [_P] * 5 + [_I] * 3 + [_P],
+    "listed_pairs": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -117,7 +121,9 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _build(path)
+                with profiling.span("kernels.build"):
+                    _build(path)
+                profiling.count("kernels.builds")
             lib = ctypes.CDLL(str(path))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -180,6 +186,8 @@ KERNELS = {
         Kernel("field_fwd", f"{_SRC}/field_fwd.cu", f"{_JAX}/fused.py:71"),
         Kernel("field_bwd", f"{_SRC}/field_bwd.cu", f"{_JAX}/fused.py:90"),
         Kernel("worklist_add", f"{_SRC}/worklist_add.cu", "tools/microbench.py:80"),
+        Kernel("listed_pairs", f"{_SRC}/listed_pairs.cu",
+               "none: the tracing counter cull.listed_pairs"),
     )
 }
 

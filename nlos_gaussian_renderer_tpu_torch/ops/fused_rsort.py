@@ -28,7 +28,9 @@ scan point:
      launches one cast, K1 and K2 (`_lists_from_rows`).
   5. **Field**: kernel K3 (`rsort_fwd`) sums each output tile's items;
      kernel K4 (`rsort_bwd`) accumulates each Gaussian block's gradient rows
-     (`RSortField`, an autograd Function).
+     (`RSortField`, an autograd Function). While the port's tracing is on
+     (`utils/profiling`), `listed_pairs` adds the (row, sample) pairs K3
+     evaluates to the device counter `cull.listed_pairs`.
 
 Each kernel wrapper launches its CUDA kernel (`csrc/`) for CUDA tensors and
 raises on anything it cannot take; for CPU tensors it runs the plain PyTorch
@@ -60,6 +62,7 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused import (
     tile_points_centered_direct_t,
     untile_field_t,
 )
+from nlos_gaussian_renderer_tpu_torch.utils import profiling
 
 
 def _rect_bits(n_tt: int, n_pt: int):
@@ -1072,12 +1075,47 @@ def sampled_field(table, tiles, spec: RSortSpec, grid, cam, c: int):
         )
     geo = RSortGeometry(n_tt, n_pt, n_ch, spec.t_chunk, spec.g_tile,
                         spec.t_theta * spec.t_phi)
+    words = tiles.words.reshape(-1).contiguous()
+    counter = profiling.device_counter("cull.listed_pairs", table.device)
+    if counter is not None:
+        listed_pairs(tiles.fwd, tiles.n_items, words, geo, counter)
     out = RSortField.apply(
-        table, xfeat.contiguous(), centers.contiguous(),
-        tiles.words.reshape(-1).contiguous(), tiles.fwd, tiles.bwd,
+        table, xfeat.contiguous(), centers.contiguous(), words, tiles.fwd, tiles.bwd,
         tiles.n_items, geo, c,
     )
     return untile_field_t(out, ns, num_r, tp_spec, n_tt, n_pt, n_ch)
+
+
+@torch.no_grad()
+def listed_pairs(fwd, n_items, words, geo: RSortGeometry, total) -> None:
+    """Add to `total` ((1,) int64) the (member row, sample) pairs K3
+    evaluates on the forward list fwd (6, W) with `n_items` (1,) int32 and
+    the rect words (KB * g_tile,) int32: over the first n_items items, the
+    rows of the item's block whose word covers its tile, times its bins
+    (bh - bl + 1), times `geo.s_ang` (`tools/kernel_work.rsort_field_work`'s
+    `pairs`). On the card one launch that reads n_items there, so a CUDA
+    graph captures it; on the CPU the plain version."""
+    if on_cpu(fwd, n_items, words, total):
+        total += _listed_pairs_plain(fwd, n_items, words, geo)
+        return
+    w = fwd.shape[1]
+    check_tensor(fwd, "fwd", torch.int32, (6, w))
+    check_tensor(n_items, "n_items", torch.int32, (1,))
+    check_tensor(words, "words", torch.int32)
+    check_tensor(total, "total", torch.int64, (1,))
+    if words.shape[0] % geo.g_tile:
+        raise ValueError("words must be whole g_tile blocks")
+    b_t, b_p, _ = _rect_bits(geo.n_tt, geo.n_pt)
+    KERNELS["listed_pairs"].launch(ptr(fwd), ptr(n_items), ptr(words), ptr(total), w,
+                                   geo.g_tile, geo.s_ang, geo.n_pt, b_t, b_p)
+
+
+def _listed_pairs_plain(fwd, n_items, words, geo: RSortGeometry):
+    """(1,) int64: `listed_pairs`' count, in PyTorch."""
+    lists = fwd[:, :int(n_items[0])].long()
+    memb = _member_of(words.reshape(-1, geo.g_tile)[lists[2]], lists[0][:, None],
+                      geo.n_tt, geo.n_pt)
+    return (memb.sum(1) * (lists[5] - lists[4] + 1) * geo.s_ang).sum().reshape(1)
 
 
 @torch.no_grad()

@@ -77,6 +77,7 @@ from nlos_gaussian_renderer_tpu_torch.ops.render import (
 )
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 from nlos_gaussian_renderer_tpu_torch.ops.schedule import expon_lr_schedule_tensor
+from nlos_gaussian_renderer_tpu_torch.utils import profiling
 
 # The six Adam groups in optax's label order, and each group's scene field.
 GROUPS = ("mu", "f_dc", "f_rest", "opacity", "scaling", "rotation")
@@ -488,17 +489,26 @@ class ScannedTrainStep:
     step); `graphs=False` runs the K steps eagerly on the card too (a step
     whose collectives cannot be captured, gloo's).
 
-    Statistics: `captures`, `replays`, `densify_replays`, `layout_replays`
-    (layouts built), of every capture `capture_log` (step, densify and
-    layout graph seconds), and of the last `capture_s`, `instantiate_s`
-    (from the log) and `launches_per_replay` ({kernel: launches a replay
-    of the step's graph})."""
+    The graph is also captured again when the port's tracing
+    (`utils/profiling`) has been switched since the last capture: a graph
+    captured while it was on counts `cull.listed_pairs` on every replay.
+
+    Statistics, in `log`, which the chunks of one `OverflowGate` share
+    across its re-tunes (a chunk made alone has its own): `captures`,
+    `replays`, `densify_replays`, `layout_replays` (layouts built), read
+    from `log.counts` (which, while tracing is on, also adds them to the
+    trace's counters `chunk.<name>`), of every capture `capture_log` (step,
+    densify and layout graph seconds), and of the last `capture_s`,
+    `instantiate_s` and `launches_per_replay` ({kernel: launches a replay
+    of the step's graph}). Spans: `chunk.capture` (warm-up, capture and
+    instantiation of the graphs), `chunk.launch` (the input copies and the
+    replays; on the CPU the steps)."""
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
                  max_sh_degree: int, sh_anneal_interval: int = 1000, seed: int = 0,
                  densify_seed: Optional[int] = None, ref_cam=None,
                  layout_slack: float = 0.0, step: Optional[Callable] = None,
-                 graphs: bool = True):
+                 graphs: bool = True, log: Optional["ChunkLog"] = None):
         self.settings = settings
         self._optim = optim
         self._step = step or make_train_step(settings, optim, max_sh_degree,
@@ -511,12 +521,14 @@ class ScannedTrainStep:
         self._graph = self._dgraph = self._lgraph = None
         self._layout = None
         self._key = None
-        self.captures = 0
-        self.replays = 0
-        self.densify_replays = 0
-        self.layout_replays = 0
-        self.capture_log = []
-        self.launches_per_replay = {}
+        self.log = log if log is not None else ChunkLog()
+
+    captures = property(lambda self: self.log.counts["chunk.captures"])
+    replays = property(lambda self: self.log.counts["chunk.replays"])
+    densify_replays = property(lambda self: self.log.counts["chunk.densify_replays"])
+    layout_replays = property(lambda self: self.log.counts["chunk.layout_replays"])
+    capture_log = property(lambda self: self.log.captures)
+    launches_per_replay = property(lambda self: self.log.launches)
 
     def layout(self, state: TrainState, box_points, c, delta_t):
         """The layout a call from `state` builds (None without `ref_cam`)."""
@@ -552,42 +564,45 @@ class ScannedTrainStep:
         k = cams_k.shape[0]
         fires = self._fires(step0, k)
         if cams_k.device.type == "cpu" or not self.graphs:
-            layout = self.layout(state, box_points, c, delta_t)
-            self.layout_replays += layout is not None
-            auxs = []
-            for i in range(k):
-                auxs.append(self._step(state, cams_k[i], targets_k[i], box_points, c,
-                                       delta_t, volume_position, layout))
-                if fires[i]:
-                    self._densify(state)
-            self.densify_replays += sum(fires)
-            return stack_aux(auxs)
+            with profiling.span("chunk.launch"):
+                layout = self.layout(state, box_points, c, delta_t)
+                auxs = []
+                for i in range(k):
+                    auxs.append(self._step(state, cams_k[i], targets_k[i], box_points, c,
+                                           delta_t, volume_position, layout))
+                    if fires[i]:
+                        self._densify(state)
+                self.log.counts.add("chunk.layout_replays", int(layout is not None))
+                self.log.counts.add("chunk.densify_replays", sum(fires))
+                return stack_aux(auxs)
         if cams_k.device.type != "cuda":
             raise ValueError(f"no chunk for device {cams_k.device}")
         key = (tuple(cams_k.shape), tuple(targets_k.shape), targets_k.dtype, c, delta_t,
                box_points.data_ptr(), volume_position.data_ptr(),
-               tuple(t.data_ptr() for t in state_tensors(state)))
+               tuple(t.data_ptr() for t in state_tensors(state)), profiling.tracing())
         if key != self._key:
-            self._capture(state, cams_k, targets_k, box_points, c, delta_t,
-                          volume_position)
+            with profiling.span("chunk.capture"):
+                self._capture(state, cams_k, targets_k, box_points, c, delta_t,
+                              volume_position)
             self._key = key
-        self._cams.copy_(cams_k)
-        self._targets.copy_(targets_k)
-        self._i.zero_()
-        self._of.zero_()
-        with sync_errors():
-            if self._lgraph is not None:
-                self._lgraph.replay()
-                self.layout_replays += 1
-            for i in range(k):
-                self._graph.replay()
-                if fires[i]:
-                    self._dgraph.replay()
-        self.replays += k
-        self.densify_replays += sum(fires)
-        return StepAux(loss=self._loss.clone(), equal_loss=self._eq.clone(),
-                       pred_hist=self._pred.clone(), target_hist=targets_k,
-                       overflow=self._of.clone())
+        with profiling.span("chunk.launch"):
+            self._cams.copy_(cams_k)
+            self._targets.copy_(targets_k)
+            self._i.zero_()
+            self._of.zero_()
+            with sync_errors():
+                if self._lgraph is not None:
+                    self._lgraph.replay()
+                for i in range(k):
+                    self._graph.replay()
+                    if fires[i]:
+                        self._dgraph.replay()
+            self.log.counts.add("chunk.layout_replays", int(self._lgraph is not None))
+            self.log.counts.add("chunk.replays", k)
+            self.log.counts.add("chunk.densify_replays", sum(fires))
+            return StepAux(loss=self._loss.clone(), equal_loss=self._eq.clone(),
+                           pred_hist=self._pred.clone(), target_hist=targets_k,
+                           overflow=self._of.clone())
 
     def _body(self, state, box_points, c, delta_t, volume_position):
         cams = self._cams.index_select(0, self._i)[0]
@@ -627,15 +642,16 @@ class ScannedTrainStep:
             with sync_errors():
                 self._lgraph.replay()
             log.update(layout_capture_s=l_cap, layout_instantiate_s=l_inst)
-        graph, cap_s, inst_s, self.launches_per_replay = _capture_graph(
+        graph, cap_s, inst_s, launches = _capture_graph(
             lambda: self._body(state, box_points, c, delta_t, volume_position), state, dev)
         log.update(capture_s=cap_s, instantiate_s=inst_s)
         if self.densify_seed is not None:
             self._dgraph, d_cap, d_inst, _ = _capture_graph(lambda: self._densify(state),
                                                             state, dev)
             log.update(densify_capture_s=d_cap, densify_instantiate_s=d_inst)
-        self.capture_log.append(log)
-        self.captures += 1
+        self.log.captures.append(log)
+        self.log.launches = launches
+        self.log.counts.add("chunk.captures")
         self._graph = graph
 
 
@@ -664,6 +680,18 @@ def _capture_graph(body: Callable[[], None], state: TrainState, dev):
     after = cuda_build.captured_counts()
     return (graph, t1 - t0, time.perf_counter() - t1,
             {n: after[n] - before[n] for n in after if after[n] != before[n]})
+
+
+@dataclasses.dataclass
+class ChunkLog:
+    """What the chunks of one `OverflowGate` share across its re-tunes (a
+    chunk made alone has its own): the counts of their events and of the
+    gate's (`gate.retunes`, `gate.overflow_replays`), each capture's
+    seconds, and the last capture's launches a replay."""
+
+    counts: profiling.Counts = dataclasses.field(default_factory=profiling.Counts)
+    captures: list = dataclasses.field(default_factory=list)
+    launches: dict = dataclasses.field(default_factory=dict)
 
 
 def make_scanned_train_step(settings: RenderSettings, optim: OptimizationParams,
@@ -899,7 +927,13 @@ class OverflowGate:
     recorded (the 256x256 grid's five probes do not bound `k_max` at
     100k). With `ref_cam` (frozen layouts) the chunk builds its layouts
     from it and every re-fit culls against one; the single step renders
-    without a layout, as JAX's `fit` does."""
+    without a layout, as JAX's `fit` does.
+
+    `log` (a `ChunkLog`) holds the counts of the gate's re-tunes and
+    overflow replays and of its chunks' captures and replays, over every
+    chunk it builds. Spans: `fit.chunk` around each `run_gated` (its
+    children `gate.snapshot`, the chunk's, `gate.overflow_read` (the host
+    read of the overflow flag), `gate.overflow_replay`), `gate.retune`."""
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
                  max_sh_degree: int, probe_cams, box_points, c: float, delta_t: float,
@@ -907,7 +941,7 @@ class OverflowGate:
                  densify_seed: Optional[int] = None, ref_cam=None,
                  layout_slack: float = 0.0):
         self.settings = settings
-        self.retunes = 0
+        self.log = ChunkLog()
         self.retune_caps = []
         self.overflow_detected = False
         self._optim, self._max_sh = optim, max_sh_degree
@@ -919,12 +953,12 @@ class OverflowGate:
         self.step = make_train_step(settings, optim, max_sh_degree, sh_anneal_interval, seed)
         self.chunk = None
 
+    retunes = property(lambda self: self.log.counts["gate.retunes"])
+
     def enable_chunk(self) -> ScannedTrainStep:
-        self.chunk = make_scanned_train_step(self.settings, self._optim, self._max_sh,
-                                             self._interval, ref_cam=self._ref_cam,
-                                             layout_slack=self._layout_slack,
-                                             densify_seed=self._densify_seed,
-                                             seed=self._seed)
+        self.chunk = ScannedTrainStep(self.settings, self._optim, self._max_sh,
+                                      self._interval, self._seed, self._densify_seed,
+                                      self._ref_cam, self._layout_slack, log=self.log)
         return self.chunk
 
     def _rebuild(self, settings: RenderSettings) -> None:
@@ -932,33 +966,26 @@ class OverflowGate:
         self.step = make_train_step(settings, self._optim, self._max_sh, self._interval,
                                     self._seed)
         if self.chunk is not None:
-            old = self.chunk
             self.enable_chunk()
-            self.chunk.captures += old.captures
-            self.chunk.replays += old.replays
-            self.chunk.densify_replays += old.densify_replays
-            self.chunk.layout_replays += old.layout_replays
-            # The last capture's statistics stand until the new chunk captures.
-            self.chunk.capture_log = old.capture_log
-            self.chunk.launches_per_replay = old.launches_per_replay
-        self.retunes += 1
+        self.log.counts.add("gate.retunes")
         self.retune_caps.append(culling_caps(settings))
 
     def retune(self, state: TrainState, cams=None) -> bool:
         """Grow the capacities to the state's population on the probes (and
         `cams`, any shape (..., 3)); rebuild on change."""
-        probes = self._probes
-        if cams is not None:
-            probes = np.concatenate(
-                [probes, cams.detach().reshape(-1, 3).cpu().numpy().astype(np.float32)])
-        new, changed = fit_culling_capacity(self.settings, state.scene, probes,
-                                            self._box, self._c, self._dt,
-                                            ref_cam=self._ref_cam,
-                                            layout_slack=self._layout_slack)
-        if changed:
-            self._rebuild(new)
-            print(f"culling capacities re-tuned: {_caps_text(new)}")
-        return changed
+        with profiling.span("gate.retune"):
+            probes = self._probes
+            if cams is not None:
+                probes = np.concatenate(
+                    [probes, cams.detach().reshape(-1, 3).cpu().numpy().astype(np.float32)])
+            new, changed = fit_culling_capacity(self.settings, state.scene, probes,
+                                                self._box, self._c, self._dt,
+                                                ref_cam=self._ref_cam,
+                                                layout_slack=self._layout_slack)
+            if changed:
+                self._rebuild(new)
+                print(f"culling capacities re-tuned: {_caps_text(new)}")
+            return changed
 
     def force_grow_caps(self, state: TrainState) -> bool:
         """Grow the work-list caps 25% past the fit (the escalation for
@@ -980,28 +1007,46 @@ class OverflowGate:
         """One step (or chunk) of the current builders with the gate: one
         host read of the overflow flag after it. `kw` goes to the chunk
         (`step0` where it densifies)."""
-        snap = snapshot_state(state)
-        aux = (self.chunk if chunked else self.step)(state, cams, *args, **kw)
-        replays = 0
-        while bool(aux.overflow):
-            if replays == 4:
-                # Still overflowing after the last replay: keep the result
-                # and record the failure.
-                self.overflow_detected = True
-                break
-            replays += 1
-            print(f"WARNING: culling capacity overflow in {what} — re-tuning caps "
-                  "and re-running from the pre-overflow state")
-            restore_state(state, snap)
-            grown = (self.retune(state, cams)
-                     or (may_densify and self.force_grow_caps(state)))
-            aux = (self.chunk if chunked else self.step)(state, cams, *args, **kw)
-            if not grown:
-                # Caps at the fitted maximum and still overflowing: keep the
-                # (superset-capped) result and record the failure.
-                self.overflow_detected = True
-                break
-        return aux
+
+        def run():
+            if chunked:
+                return self.chunk(state, cams, *args, **kw)
+            with profiling.span("chunk.launch"):
+                return self.step(state, cams, *args, **kw)
+
+        with profiling.span("fit.chunk"):
+            with profiling.span("gate.snapshot"):
+                snap = snapshot_state(state)
+            aux = run()
+            with profiling.span("gate.overflow_read"):
+                overflowed = bool(aux.overflow)
+            if not overflowed:
+                return aux
+            with profiling.span("gate.overflow_replay"):
+                replays = 0
+                while overflowed:
+                    if replays == 4:
+                        # Still overflowing after the last replay: keep the
+                        # result and record the failure.
+                        self.overflow_detected = True
+                        break
+                    replays += 1
+                    self.log.counts.add("gate.overflow_replays")
+                    print(f"WARNING: culling capacity overflow in {what} — re-tuning caps "
+                          "and re-running from the pre-overflow state")
+                    restore_state(state, snap)
+                    grown = (self.retune(state, cams)
+                             or (may_densify and self.force_grow_caps(state)))
+                    aux = run()
+                    if not grown:
+                        # Caps at the fitted maximum and still overflowing:
+                        # keep the (superset-capped) result and record the
+                        # failure.
+                        self.overflow_detected = True
+                        break
+                    with profiling.span("gate.overflow_read"):
+                        overflowed = bool(aux.overflow)
+            return aux
 
 
 def fit(
@@ -1053,14 +1098,22 @@ def fit(
     scan-grid centroid, its aperture radius + 2 cm), and the caps are fitted
     against such a layout; single steps (the tail, the per-step path, and
     so every densified frozen-layout run) render without one, as in JAX.
+
+    Spans (`utils/profiling`, while its tracing is on): `fit.prepare`
+    (`prepare_training`), the gate's and the chunk's (`OverflowGate`,
+    `ScannedTrainStep`; on the per-step path `chunk.launch` a step and the
+    gate's names at its log boundaries), `fit.densify` (a host-side
+    densify step), `fit.log_read` (the loss reads at log boundaries) and
+    `fit.callback` (the state's copy and the callback).
     """
     num_iters = num_iters if num_iters is not None else optim.iterations
     log_every = log_every if log_every is not None else cfg.print_interval
     rng = np.random.default_rng(cfg.rng)
 
-    scene, tx, settings, box_points = prepare_training(
-        cfg, optim, data, init_points, init_rhos, device=device
-    )
+    with profiling.span("fit.prepare"):
+        scene, tx, settings, box_points = prepare_training(
+            cfg, optim, data, init_points, init_rhos, device=device
+        )
     dev = box_points.device
     state = clone_state(init_state) if init_state is not None else create_train_state(scene, tx)
     # The step counter at entry, read once: densify events fall at the
@@ -1072,7 +1125,9 @@ def fit(
         return densify_fires(optim, step0 + it + 1)
 
     def densify_now() -> None:
-        densify_step(state.scene, state.opt_state, densify_seed, state.step, optim.cap_max)
+        with profiling.span("fit.densify"):
+            densify_step(state.scene, state.opt_state, densify_seed, state.step,
+                         optim.cap_max)
 
     l, m, n = data.shape
     nlos = torch.as_tensor(data.nlos_data.reshape(l, m * n), device=dev)
@@ -1118,7 +1173,13 @@ def fit(
         if callback is None:
             return
         if callback_every is None or it_end % callback_every == 0 or it_end == num_iters:
-            callback(it_end - 1, clone_state(state), aux_last)
+            with profiling.span("fit.callback"):
+                callback(it_end - 1, clone_state(state), aux_last)
+
+    def read_losses(aux_last) -> None:
+        with profiling.span("fit.log_read"):
+            losses.append(float(aux_last.loss))
+            eqs.append(float(aux_last.equal_loss))
 
     def finish(t0):
         if dev.type == "cuda":
@@ -1126,10 +1187,11 @@ def fit(
         dt = time.perf_counter() - t0
         stats = None
         if gate.chunk is not None:
-            ch = gate.chunk
-            stats = dict(chunk=chunk, captures=ch.captures, replays=ch.replays,
-                         densify_replays=ch.densify_replays,
-                         layout_replays=ch.layout_replays,
+            ch, n = gate.chunk, gate.log.counts
+            stats = dict(chunk=chunk, captures=n["chunk.captures"],
+                         replays=n["chunk.replays"],
+                         densify_replays=n["chunk.densify_replays"],
+                         layout_replays=n["chunk.layout_replays"],
                          capture_log=list(ch.capture_log),
                          capture_s=ch.capture_s, instantiate_s=ch.instantiate_s,
                          launches_per_replay=dict(ch.launches_per_replay))
@@ -1174,8 +1236,7 @@ def fit(
                 gate.retune(state)
             it += k
             if it % log_every == 0 or it == num_iters:
-                losses.append(float(aux.loss))
-                eqs.append(float(aux.equal_loss))
+                read_losses(aux)
             fire_callback(it, aux)
         return finish(t0)
 
@@ -1183,13 +1244,22 @@ def fit(
     # at log boundaries; on overflow the window since the last boundary is
     # replayed, steps and densify events in order, from its retained
     # starting state with re-tuned caps.
+    def snapshot_window() -> list:
+        with profiling.span("gate.snapshot"):
+            return snapshot_state(state)
+
+    def read_overflow() -> bool:
+        with profiling.span("gate.overflow_read"):
+            return bool(of_acc)
+
     of_acc = torch.zeros((), dtype=torch.bool, device=dev)
-    window_start = snapshot_state(state)
+    window_start = snapshot_window()
     window_events: list = []  # ("step", it) | ("densify", it)
     t0 = time.perf_counter()
     for it in range(num_iters):
         cams, targets = gather_batch(idx_all[it])
-        aux = gate.step(state, cams, targets, *consts)
+        with profiling.span("chunk.launch"):
+            aux = gate.step(state, cams, targets, *consts)
         window_events.append(("step", it))
         if fires(it):
             densify_now()
@@ -1199,34 +1269,40 @@ def fit(
             gate.retune(state)
         of_acc = of_acc | aux.overflow
         if (it + 1) % log_every == 0 or it == num_iters - 1:
-            replays = 0
-            while bool(of_acc):
-                if replays == 4:
-                    gate.overflow_detected = True
-                    break
-                replays += 1
-                print(f"WARNING: culling capacity overflow by iter {it + 1} — "
-                      "re-tuning caps and replaying the window")
-                steps = [j for ev, j in window_events if ev == "step"]
-                if not gate.retune(state, cam_grid[idx_all[steps]]):
-                    gate.overflow_detected = True
-                    break
-                restore_state(state, window_start)
-                of_acc = torch.zeros((), dtype=torch.bool, device=dev)
-                for ev, j in window_events:
-                    if ev == "densify":
-                        densify_now()
-                        continue
-                    cams_r, targets_r = gather_batch(idx_all[j])
-                    aux = gate.step(state, cams_r, targets_r, *consts)
-                    of_acc = of_acc | aux.overflow
-            losses.append(float(aux.loss))
-            eqs.append(float(aux.equal_loss))
+            overflowed = read_overflow()
+            replay_span = (profiling.span("gate.overflow_replay") if overflowed
+                           else contextlib.nullcontext())
+            with replay_span:
+                replays = 0
+                while overflowed:
+                    if replays == 4:
+                        gate.overflow_detected = True
+                        break
+                    replays += 1
+                    gate.log.counts.add("gate.overflow_replays")
+                    print(f"WARNING: culling capacity overflow by iter {it + 1} — "
+                          "re-tuning caps and replaying the window")
+                    steps = [j for ev, j in window_events if ev == "step"]
+                    if not gate.retune(state, cam_grid[idx_all[steps]]):
+                        gate.overflow_detected = True
+                        break
+                    restore_state(state, window_start)
+                    of_acc = torch.zeros((), dtype=torch.bool, device=dev)
+                    for ev, j in window_events:
+                        if ev == "densify":
+                            densify_now()
+                            continue
+                        cams_r, targets_r = gather_batch(idx_all[j])
+                        aux = gate.step(state, cams_r, targets_r, *consts)
+                        of_acc = of_acc | aux.overflow
+                    overflowed = read_overflow()
+            read_losses(aux)
             of_acc = torch.zeros((), dtype=torch.bool, device=dev)
-            window_start = snapshot_state(state)
+            window_start = snapshot_window()
             window_events = []
         if callback is not None and callback_every is None:
-            callback(it, clone_state(state), aux)
+            with profiling.span("fit.callback"):
+                callback(it, clone_state(state), aux)
         else:
             fire_callback(it + 1, aux)
     return finish(t0)

@@ -13,7 +13,9 @@ K1-K4 at the new caps, and the launch counters count wrapper calls only
 in every replay. A densified chunk (MCMC densification every 3 steps and
 SGLD noise, 5k of 6k slots) captures its densify step as a second graph
 under the sync check, and its replay equals the same steps and events
-eagerly bit for bit."""
+eagerly bit for bit. With the port's tracing on, the replays count the
+listed pairs (`cull.listed_pairs`) the eager steps count, at one more
+launch a replay."""
 
 import numpy as np
 import pytest
@@ -94,7 +96,10 @@ def test_retune_captures_a_new_graph_at_the_new_caps(dev):
     gate = train.OverflowGate(starved, optim, cfg.sh_degree, probes, *consts[:3])
     first = gate.enable_chunk()
     aux = gate.run_gated(True, state, cams, tgts, *consts, what="the test chunk")
-    assert first.captures == 1 and gate.chunk is not first
+    # The gate's chunks count into its log: one capture by the first chunk
+    # and one by each chunk a re-tune built.
+    assert gate.chunk is not first and first.captures == gate.chunk.captures
+    assert first.captures == len(gate.log.captures) == 1 + gate.retunes
     assert gate.retunes >= 1 and not gate.overflow_detected and not bool(aux.overflow)
     assert gate.settings.rsort_spec.w_max > 4
     assert gate.chunk.settings == gate.settings
@@ -159,3 +164,69 @@ def test_densified_chunk_replay_equals_eager_bit_for_bit(dev):
     print(f"densified replay vs eager max |diff| {gap:.3e}")
     assert equal and torch.equal(aux.loss, torch.stack(losses)), gap
     assert not bool(aux.overflow) and int(state.step) == 1 + K
+
+
+def test_replays_count_the_listed_pairs_of_the_eager_steps(dev):
+    """With the port's tracing on, K replays of a chunk add to
+    `cull.listed_pairs` exactly what K eager steps from the same state add
+    (K times one step's pairs a step), and the count adds one launch a
+    replay (`listed_pairs`) to the graph of a chunk captured with tracing
+    off."""
+    from nlos_gaussian_renderer_tpu_torch.utils import profiling
+
+    _, cfg, optim, settings, state, consts, cams, tgts = setup(dev)
+    s0 = train.snapshot_state(state)
+    off = train.make_scanned_train_step(settings, optim, cfg.sh_degree)
+    off(state, cams, tgts, *consts)
+    base = dict(off.launches_per_replay)
+    step = train.make_train_step(settings, optim, cfg.sh_degree)
+    chunk = train.make_scanned_train_step(settings, optim, cfg.sh_degree)
+    profiling.enable_tracing(True)
+    try:
+        train.restore_state(state, s0)
+        profiling.reset()
+        per_step = []
+        for i in range(K):
+            step(state, cams[i], tgts[i], *consts)
+            per_step.append(profiling.snapshot()["counters"]["cull.listed_pairs"])
+        train.restore_state(state, s0)
+        chunk(state, cams, tgts, *consts)  # captures; its warm-up step counts too
+        train.restore_state(state, s0)
+        profiling.reset()
+        chunk(state, cams, tgts, *consts)
+        replayed = profiling.snapshot()["counters"]["cull.listed_pairs"]
+    finally:
+        profiling.enable_tracing(False)
+        profiling.reset()
+    print(f"listed pairs a step (eager): {per_step}; K replays: {replayed}")
+    assert chunk.captures == 1 and per_step[0] > 0
+    assert replayed == per_step[-1]
+    on = chunk.launches_per_replay
+    assert on["listed_pairs"] == 1 and "listed_pairs" not in base
+    assert {k: v for k, v in on.items() if k != "listed_pairs"} == base
+
+
+def test_listed_pairs_kernel_equals_its_plain_version(dev):
+    """The counting kernel on the 5k scene's lists at three scan points: it
+    adds (twice, here) the plain version's count, which the CPU tests hold
+    to `tools/kernel_work`'s pairs."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
+    from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
+
+    data, _, _, settings, state, consts, cams, _ = setup(dev)
+    spec, sc = settings.rsort_spec, state.scene
+    for cam in cams[:3, 0]:
+        grid = shell_grid(cam, consts[0], settings.num_sampling_points, settings.start,
+                          settings.end, data.c, data.deltaT)
+        tiles = fr.rsort_cull(sc.means, sc.scales, sc.alive, cam, grid.theta, grid.phi,
+                              grid.r, spec, settings.scaling_modifier)
+        ns = grid.theta.shape[0]
+        geo = fr.RSortGeometry(fr._cdiv(ns, spec.t_theta), fr._cdiv(ns, spec.t_phi),
+                               fr._cdiv(grid.r.shape[0], spec.t_chunk), spec.t_chunk,
+                               spec.g_tile, spec.t_theta * spec.t_phi)
+        words = tiles.words.reshape(-1).contiguous()
+        total = torch.zeros(1, dtype=torch.int64, device=dev)
+        for _ in range(2):
+            fr.listed_pairs(tiles.fwd, tiles.n_items, words, geo, total)
+        plain = fr._listed_pairs_plain(tiles.fwd.cpu(), tiles.n_items.cpu(), words.cpu(), geo)
+        assert int(total) == 2 * int(plain) > 0, (int(total), int(plain))
