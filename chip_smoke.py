@@ -24,7 +24,7 @@ and the reference regime's pilot with the last tools.
 
 Phases:
 
-  1. build the ten CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
+  1. build the twelve CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
   2. fit the capacities (rsort caps on the bench's three probe cameras; the
      tile `k_max` from 2048 by doubling on the corners and middle of the
      256x256 scan grid);
@@ -38,6 +38,9 @@ Phases:
      exp(-phi/2) is nonzero, counted from the plain section terms), and
      the tracing counter `listed_pairs` on K3's lists (exactly its plain
      version's count and K3's pairs; a second launch adds as much again);
+     then the per-Gaussian rows (`gaussian_rows_fwd`, bit for bit the
+     plain chain's, and `gaussian_rows_bwd`, rel_l2 <= 1e-4 of autograd
+     through it) at SH degree 3;
      then K1-K4 once more, at the spec the tools tune (t_chunk 32, gate_bins
      4: seven radial chunks), and K1/K2 at `RSortSpec`'s default t_chunk 8
      (25 chunks), with the same gates (the kernels line keeps the train
@@ -291,10 +294,12 @@ N_GRAD = 5_000
 TRAIN_STEPS = 25
 WARMUP_STEPS = 3
 PROFILE_STEPS = 10
+ROW_KERNELS = ("gaussian_rows_fwd", "gaussian_rows_bwd")  # every kernel backend's step
 PATH_KERNELS = {
-    "pallas_rsort": ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd"),
-    "pallas_analytic": ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd"),
-    "pallas": ("field_fwd", "field_bwd"),
+    "pallas_rsort": ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd") + ROW_KERNELS,
+    "pallas_analytic": ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd")
+    + ROW_KERNELS,
+    "pallas": ("field_fwd", "field_bwd") + ROW_KERNELS,
 }
 TOOLS_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
 K9_ROW_SHAPE = (4096, 1024)  # (s, w) of the K9 row in the kernels line
@@ -1168,6 +1173,56 @@ def main() -> int:
         return True
 
     kernels_vs_plain()
+
+    @phase("per-Gaussian rows vs the chain (100k, SH degree 3, cam 0)")
+    def rows_vs_plain():
+        """gaussian_rows_fwd / _bwd on the bench scene with the benchmark's
+        SH degree 3 (random pose) at the centre camera, C = 1: the forward
+        equal to the plain chain bit for bit (and a second launch to the
+        first), the backward within rel_l2 1e-4 of autograd through the
+        chain on a normal cotangent; times, plain times and bytes bounds."""
+        from nlos_gaussian_renderer_tpu_torch.ops import gaussian_rows as grows
+
+        sc3, _, _ = bench_scene(N_GAUSSIANS, device=dev, max_sh_degree=3, random_pose=True)
+        deg = torch.full((1,), 3, dtype=torch.int32, device=dev)
+        params = [getattr(sc3, n) for n in tscene.PARAM_NAMES]
+        ops = [p.detach() for p in params] + [sc3.alive, pcam, deg]
+        kf = lambda: grows.gaussian_rows_fwd(*ops, 1.0, 1)
+        pf = lambda: grows._rows_plain(sc3, pcam, deg[0], base).detach()
+        got, ref = kf(), pf()
+        check(torch.equal(got, ref), "gaussian_rows_fwd == the plain chain (bit for bit)")
+        check(torch.equal(kf().view(torch.int32), got.view(torch.int32)),
+              "gaussian_rows_fwd second launch equals the first bit for bit")
+        dgw = torch.randn(got.shape, generator=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+        kb = lambda: grows.gaussian_rows_bwd(*ops, 1.0, dgw)
+
+        def pb():
+            rows = grows._rows_plain(sc3, pcam, deg[0], base)
+            return torch.autograd.grad((rows * dgw).sum(), params)
+
+        gk, gp = kb(), pb()
+        err = max(rel_l2(a, b) for a, b in zip(gk, gp))
+        check(err <= 1e-4, f"gaussian_rows_bwd rel_l2 {err:.3e} <= 1e-4 (worst group)")
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(kb(), gk)),
+              "gaussian_rows_bwd second launch equals the first bit for bit")
+        # One pass: the parameters and alive read, the row written; the
+        # backward also reads dgw and writes the six gradients.
+        n_in = nbytes(*ops[:7])
+        kernel_rows["gaussian_rows_fwd"] = dict(
+            max_abs_err=float((got - ref).abs().max()), ms=cuda_time(kf, 20),
+            plain_ms=cuda_time(pf, 5),
+            bound=bound("gaussian_rows_fwd", f"{N_GAUSSIANS} rows", n_in + nbytes(got), 0, 0))
+        kernel_rows["gaussian_rows_bwd"] = dict(
+            max_abs_err=float(max((a - b).abs().max() for a, b in zip(gk, gp))),
+            rel_l2=err, ms=cuda_time(kb, 20), plain_ms=cuda_time(pb, 5),
+            bound=bound("gaussian_rows_bwd", f"{N_GAUSSIANS} rows",
+                        n_in + nbytes(dgw, *gk), 0, 0))
+        log_rows({k: kernel_rows[k] for k in ROW_KERNELS})
+        return True
+
+    rows_vs_plain()
 
     @phase("K1-K4 vs plain versions at the tools' spec (100k, cam 0, t_chunk 32)")
     def rsort_kernels_tools_spec():

@@ -9,7 +9,8 @@ missing `nvcc` or a failed build raises.
 
 `KERNELS` registers every kernel of the port (its source, the TPU kernel it
 replaces, its launch count; `listed_pairs`, the tracing counter of
-`utils/profiling`, replaces none); the wrappers in `ops/fused*.py` and
+`utils/profiling`, and `gaussian_rows_fwd` / `_bwd`, the per-Gaussian rows
+of `ops/gaussian_rows`, replace none); the wrappers in `ops/fused*.py` and
 `tools/microbench.py` launch through it and check their tensors with
 `check_tensor`.
 """
@@ -36,6 +37,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (the last pointer is the stream).
 SIGNATURES = {
     "cull_reduce": [_P, _I, _I] + [_P] * 4 + [_I] * 7 + [_P],
@@ -48,6 +50,8 @@ SIGNATURES = {
     "field_bwd": [_P] * 11 + [_I] * 8 + [_P],
     "worklist_add": [_P] * 5 + [_I] * 3 + [_P],
     "listed_pairs": [_P] * 4 + [_I] * 6 + [_P],
+    "gaussian_rows_fwd": [_P] * 10 + [_I] * 3 + [_F] + [_P],
+    "gaussian_rows_bwd": [_P] * 16 + [_I] * 3 + [_F] + [_P],
 }
 
 _lock = threading.Lock()
@@ -144,6 +148,7 @@ def error_string(code: int) -> str:
 
 _JAX = "nlos_gaussian_renderer_tpu/ops"
 _SRC = "nlos_gaussian_renderer_tpu_torch/csrc"
+_ROW_CHAIN = "none: the per-Gaussian row chain XLA fused on the TPU"
 
 
 class Kernel:
@@ -188,6 +193,8 @@ KERNELS = {
         Kernel("worklist_add", f"{_SRC}/worklist_add.cu", "tools/microbench.py:80"),
         Kernel("listed_pairs", f"{_SRC}/listed_pairs.cu",
                "none: the tracing counter cull.listed_pairs"),
+        Kernel("gaussian_rows_fwd", f"{_SRC}/gaussian_rows_fwd.cu", _ROW_CHAIN),
+        Kernel("gaussian_rows_bwd", f"{_SRC}/gaussian_rows_bwd.cu", _ROW_CHAIN),
     )
 }
 

@@ -33,6 +33,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from nlos_gaussian_renderer_tpu_torch.models.scene import GaussianScene
+from nlos_gaussian_renderer_tpu_torch.ops import gaussian_rows as grows
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
 from nlos_gaussian_renderer_tpu_torch.ops.analytic import analytic_field_response
 from nlos_gaussian_renderer_tpu_torch.ops.fused import (
@@ -49,6 +50,10 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import (
     RSortSpec,
     rsort_cull,
     rsort_gaussian_field,
+)
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import (  # noqa: F401 (re-exported)
+    channel_weights,
+    view_albedo,
 )
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import (
     ShellGrid,
@@ -126,19 +131,6 @@ class RenderSettings(NamedTuple):
             tile_spec=tile_spec,
             rsort_spec=RSortSpec(t_chunk=t_chunk, gate_bins=gate_bins),
         )
-
-
-def view_albedo(scene: GaussianScene, camera_pos, active_sh_degree):
-    """(N,) rho = clamp(eval_sh(sh, normalize(mu - cam)) + 0.5, 0); bands
-    above `active_sh_degree` are masked."""
-    dirs = scene.means - camera_pos[None, :]
-    dirs = dirs / torch.clamp(
-        torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12
-    )
-    sh_val = gmath.eval_sh_dynamic(
-        scene.sh, dirs, active_sh_degree, scene.max_sh_degree
-    )
-    return torch.clamp(sh_val + 0.5, min=0.0)
 
 
 def gaussian_pdf(scene: GaussianScene, points, settings: RenderSettings):
@@ -219,23 +211,6 @@ def weighted_pdf_sums(xfeat, gfeat, weights, gauss_chunk: Optional[int] = None):
     runs over Gaussian chunks of that size, each recomputed in the backward
     (activation checkpointing), so memory stays at one (A, chunk) block."""
     return _gauss_chunked(_pdf_weighted, (xfeat,), (gfeat, weights), gauss_chunk)
-
-
-def channel_weights(scene, camera_pos, active_sh_degree, settings):
-    """(N, C) per-Gaussian channel weights: op * rho without occlusion,
-    (op, op * rho) for aggregate occlusion."""
-    op = scene.opacities[:, 0]
-    rho = view_albedo(scene, camera_pos, active_sh_degree)
-    if not settings.occlusion:
-        return (op * rho)[:, None]
-    if settings.occlusion_mode != "aggregate":
-        # per_gaussian needs the un-reduced (sample, Gaussian) matrix: no
-        # channel sum carries it (`render_transient` routes it around the
-        # kernels, to `field_response_per_gaussian_chunked`).
-        raise NotImplementedError(
-            f"occlusion_mode={settings.occlusion_mode!r} has no channel weights"
-        )
-    return torch.stack([op, op * rho], dim=-1)
 
 
 def _composite(both, c, delta_t, settings: RenderSettings):
@@ -371,8 +346,7 @@ def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
     response, this shard's overflow flag)."""
     if settings.backend not in KERNEL_BACKENDS:
         raise NotImplementedError(f"backend {settings.backend!r} is not ported")
-    w = channel_weights(scene, camera_pos, active_sh_degree, settings)
-    gfeat = scene.quadratic_form(settings.scaling_modifier)
+    gw, gfeat, w = grows.gaussian_rows(scene, camera_pos, active_sh_degree, settings)
     spec = settings.rsort_spec
     if settings.backend == "pallas":
         tiles = cull_tiles(scene.means, scene.scales, scene.alive, camera_pos,
@@ -387,8 +361,7 @@ def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
     else:
         tiles = rsort_cull(
             scene.means, scene.scales, scene.alive, camera_pos, grid.theta,
-            grid.phi, grid.r, spec, settings.scaling_modifier, layout=layout,
-            gw=torch.cat([gfeat, w], dim=1),
+            grid.phi, grid.r, spec, settings.scaling_modifier, layout=layout, gw=gw,
         )
         if settings.backend == "pallas_analytic":
             field, overflow = analytic_gaussian_field(gfeat, w, grid, tiles, spec,

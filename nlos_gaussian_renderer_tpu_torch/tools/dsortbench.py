@@ -40,10 +40,10 @@ from nlos_gaussian_renderer_tpu_torch.data.zaragoza import load_zaragoza256_data
 from nlos_gaussian_renderer_tpu_torch.ops import fused as tf
 from nlos_gaussian_renderer_tpu_torch.ops import fused_dsort as fd
 from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import gaussian_rows
 from nlos_gaussian_renderer_tpu_torch.ops.math import volume_box_points
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     RenderSettings,
-    channel_weights,
     mse_loss,
     render_transient,
 )
@@ -116,8 +116,7 @@ def kernels(scene, box, spec: fr.RSortSpec, cam, dev) -> dict:
         grid = shell_grid(cam, box, NS, START, END, C_LIGHT, DELTA_T)
         tiles = fd.dsort_cull(scene.means, scene.scales, scene.alive, cam, grid.theta,
                               grid.phi, grid.r, spec)
-        w = channel_weights(scene, cam, 0, settings(spec))
-        gw = torch.cat([scene.quadratic_form(), w], 1)
+        gw, _, w = gaussian_rows(scene, cam, 0, settings(spec))
     c = w.shape[1]
     n_tt, n_pt = -(-NS // spec.t_theta), -(-NS // spec.t_phi)
     n_ch = -(-(END - START) // spec.t_chunk)

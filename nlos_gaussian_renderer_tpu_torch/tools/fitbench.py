@@ -93,7 +93,9 @@ GAUSSIANS = 100_000
 HEAL_GAUSSIANS = 5_000
 ITERS = 300  # pallas_rsort's chunked and per-step fits
 OTHER_ITERS = 100  # pallas_analytic's and pallas's chunked fits
-RSORT_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
+# The kernels a pallas_rsort train step launches: K1-K4 and the rows'.
+RSORT_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd",
+                 "gaussian_rows_fwd", "gaussian_rows_bwd")
 # The densified regime: MCMC densification every 50 iterations from 50
 # (events at post-update counters 100, ..., 300) with SGLD noise, growing
 # from DENSIFY_GAUSSIANS toward cap_max (the default 100,000).

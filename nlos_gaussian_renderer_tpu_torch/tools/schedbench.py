@@ -130,7 +130,8 @@ def _k1_call(rows, n_gw: int, g_tile: int, r, n_tt: int, n_pt: int, total_bins: 
 def _schedule_inputs(scene, box, spec):
     """The cull geometry, radii, tile grid and forms|weights of the centre
     camera, and a K1 call and its output's (abs_lo, abs_hi)."""
-    from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings, channel_weights
+    from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import gaussian_rows
+    from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 
     cam = torch.zeros(3, device=box.device)
@@ -138,7 +139,7 @@ def _schedule_inputs(scene, box, spec):
     st = RenderSettings(num_sampling_points=NS, start=START, end=END,
                         backend="pallas_rsort", rsort_spec=spec)
     with torch.no_grad():
-        gw = torch.cat([scene.quadratic_form(), channel_weights(scene, cam, 0, st)], 1)
+        gw = gaussian_rows(scene, cam, 0, st)[0]
         geom = fr._cull_geometry(scene.means, scene.scales, scene.alive, cam, grid.theta,
                                  grid.phi, grid.r, spec)
         tiles = fr.rsort_cull(scene.means, scene.scales, scene.alive, cam, grid.theta,

@@ -30,7 +30,7 @@ from nlos_gaussian_renderer_tpu_torch.tools import fitbench
 
 pytestmark = pytest.mark.cuda
 K = 8
-K1_K4 = fitbench.RSORT_KERNELS
+STEP_KERNELS = fitbench.RSORT_KERNELS  # K1-K4 and the rows' kernels
 
 
 @pytest.fixture
@@ -103,7 +103,7 @@ def test_retune_captures_a_new_graph_at_the_new_caps(dev):
     assert gate.retunes >= 1 and not gate.overflow_detected and not bool(aux.overflow)
     assert gate.settings.rsort_spec.w_max > 4
     assert gate.chunk.settings == gate.settings
-    assert all(gate.chunk.launches_per_replay[k] == 1 for k in K1_K4)
+    assert all(gate.chunk.launches_per_replay[k] == 1 for k in STEP_KERNELS)
 
 
 def test_launch_counts_count_calls_and_the_profiler_sees_each_replay(dev):
@@ -114,11 +114,11 @@ def test_launch_counts_count_calls_and_the_profiler_sees_each_replay(dev):
     cuda_build.reset_launch_counts()
     captured = cuda_build.captured_counts()
     chunk(state, cams, tgts, *consts)
-    assert chunk.launches_per_replay == {k: 1 for k in K1_K4}
+    assert chunk.launches_per_replay == {k: 1 for k in STEP_KERNELS}
     after = cuda_build.captured_counts()
-    assert all(after[k] - captured[k] == 1 for k in K1_K4)
+    assert all(after[k] - captured[k] == 1 for k in STEP_KERNELS)
     counts = cuda_build.launch_counts()
-    assert all(counts[k] == 1 for k in K1_K4)  # the warm-up step; replays make no call
+    assert all(counts[k] == 1 for k in STEP_KERNELS)  # the warm-up step; replays make no call
     train.restore_state(state, s0)
     graph = fitbench.profile_chunk(lambda: chunk(state, cams, tgts, *consts), K)
     train.restore_state(state, s0)
@@ -126,7 +126,7 @@ def test_launch_counts_count_calls_and_the_profiler_sees_each_replay(dev):
     eager = fitbench.profile_chunk(
         lambda: [step(state, cams[i], tgts[i], *consts) for i in range(K)], K)
     calls = cuda_build.launch_counts()
-    for k in K1_K4:
+    for k in STEP_KERNELS:
         ev = eager["kernels"][k]["events"]
         assert calls[k] == K and ev % K == 0 and ev >= K, (k, calls[k], ev)
         assert graph["kernels"][k]["events"] == ev // K * chunk.launches_per_replay[k] * K, k

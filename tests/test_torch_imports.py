@@ -48,13 +48,13 @@ def test_port_has_the_mirrored_modules():
                 "tools/reconstruct_synthetic.py", "tools/analytic_crossover.py",
                 "tools/precision_compare.py", "tools/coveragestat.py", "tools/scatterbench.py",
                 "tools/trace_report.py", "tools/make_zaragoza_artifact.py",
-                "tools/geomsweep.py", "tools/kernel_work.py"):
+                "tools/geomsweep.py", "tools/kernel_work.py", "ops/gaussian_rows.py"):
         assert (PORT / rel).is_file(), rel
     kernels = {p.name for p in (PORT / "csrc").glob("*.cu")}
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
                        "rsort_bwd.cu", "analytic_fwd.cu", "analytic_bwd.cu",
                        "field_fwd.cu", "field_bwd.cu", "worklist_add.cu",
-                       "listed_pairs.cu"}
+                       "listed_pairs.cu", "gaussian_rows_fwd.cu", "gaussian_rows_bwd.cu"}
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

@@ -1,4 +1,4 @@
-"""The nine CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips (from its fixture) where no GPU is present.
 On the card: `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
@@ -554,6 +554,156 @@ def test_render_and_grads_on_card_match_cpu_plain(dev, occ, backend):
     assert rel_l2(hg, hc) <= 1e-4
     for n in gc:
         assert rel_l2(gg[n], gc[n]) <= 1e-3, n
+
+
+# --- the per-Gaussian rows (gaussian_rows_fwd / gaussian_rows_bwd) ---------------
+
+
+def _row_operands(scene, cam, deg):
+    from nlos_gaussian_renderer_tpu_torch.models.scene import PARAM_NAMES
+
+    return [getattr(scene, n).detach() for n in PARAM_NAMES] + [scene.alive, cam, deg]
+
+
+def _ulps(a, b):
+    """(columns,) largest gap in units in the last place between two f32
+    tensors (finite, same signs), by column."""
+    ia, ib = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
+    return (ia - ib).abs().amax(0)
+
+
+def _row_scene(kind, dev):
+    """The bench scene (sigma 2-12 mm) or the converged proxy (3-7 cm) at
+    100k with normal quaternions and SH degree 3 bands; every tenth row
+    dead and one quaternion zero. Returns (scene, box, tuned spec)."""
+    from nlos_gaussian_renderer_tpu_torch.tools import (
+        C_LIGHT, DELTA_T, END, NS, PROBE_CAMS, START, bench_scene)
+    from nlos_gaussian_renderer_tpu_torch.tools.geomsweep import BENCH_SIGMA, PROXY_SIGMA
+
+    sigma = BENCH_SIGMA if kind == "bench" else PROXY_SIGMA
+    scene, box, _ = bench_scene(100_000, seed=0, sigma=sigma, device=dev, max_sh_degree=3,
+                                random_pose=True)
+    with torch.no_grad():
+        scene.alive[::10] = 0.0
+        scene.quats[7] = 0.0
+    nb = END - START
+    base = fr.RSortSpec(t_chunk=-(-nb // 8) * 8, gate_bins=8)
+    spec = fr.tune_rsort_spec(scene, PROBE_CAMS, box, NS, START, END, C_LIGHT, DELTA_T,
+                              base=base)
+    return scene, box, spec
+
+
+@pytest.mark.parametrize("kind", ["bench", "proxy"])
+@pytest.mark.parametrize("occ", [False, True])
+def test_gaussian_rows_kernels_match_the_chain(dev, monkeypatch, kind, occ):
+    """At 100k, camera 0 (the scan grid's centre), SH degree 3 active 2 and
+    3, modifier 1 and 0.7: the forward rows equal the plain chain's bit for
+    bit, and a second launch the first; the VJP of the cotangent that a
+    pallas_rsort render's backward hands the rows is, per parameter group,
+    no further from the float64 chain than the float32 chain (autograd)
+    is; each wrapper call is one launch."""
+    from nlos_gaussian_renderer_tpu_torch.models.scene import PARAM_NAMES, GaussianScene
+    from nlos_gaussian_renderer_tpu_torch.ops import gaussian_rows as grows
+    from nlos_gaussian_renderer_tpu_torch.tools import (
+        C_LIGHT, DELTA_T, END, NS, START, VOLUME_POSITION)
+
+    scene, box, spec = _row_scene(kind, dev)
+    cam = torch.zeros(3, device=dev)
+    c = 2 if occ else 1
+    st = RenderSettings(num_sampling_points=NS, start=START, end=END, occlusion=occ,
+                        backend="pallas_rsort", rsort_spec=spec)
+    for active, mod in ((3, 1.0), (2, 0.7)):
+        deg = torch.full((1,), active, dtype=torch.int32, device=dev)
+        sm = st._replace(scaling_modifier=mod)
+        ops = _row_operands(scene, cam, deg)
+        ref = grows._rows_plain(scene, cam, deg[0], sm).detach()
+        before = cuda_build.launch_counts()
+        got = grows.gaussian_rows_fwd(*ops, mod, c)
+        again = grows.gaussian_rows_fwd(*ops, mod, c)
+        print(f"{kind} C={c} active {active} mod {mod}: largest ulp gap by column "
+              f"{_ulps(got, ref).tolist()}")
+        assert got.shape == (100_000, 10 + c) and torch.equal(got, ref)
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+        # The cotangent a render's backward gives the rows.
+        held = {}
+
+        def spy(*a, **k):
+            held["out"] = orig(*a, **k)
+            return held["out"]
+
+        orig = grows.gaussian_rows
+        monkeypatch.setattr(grows, "gaussian_rows", spy)
+        _, hist, ov = render_transient(scene, cam, box, C_LIGHT, DELTA_T,
+                                       torch.as_tensor(VOLUME_POSITION, device=dev), deg[0],
+                                       sm)
+        monkeypatch.setattr(grows, "gaussian_rows", orig)
+        assert not bool(ov)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        weights = torch.randn(hist.shape, generator=gen, device=dev)
+        (dgw,) = torch.autograd.grad((hist * weights).sum(), held["out"][0])
+        assert dgw.shape == got.shape and bool(dgw[:, :10].abs().amax() > 0)
+        mid = cuda_build.launch_counts()
+        got_g = grows.gaussian_rows_bwd(*ops, mod, dgw)
+        again_g = grows.gaussian_rows_bwd(*ops, mod, dgw)
+        after = cuda_build.launch_counts()
+        assert after["gaussian_rows_fwd"] == before["gaussian_rows_fwd"] + 3
+        assert after["gaussian_rows_bwd"] == mid["gaussian_rows_bwd"] + 2
+        for a, b in zip(got_g, again_g):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+        def chain_grads(dtype):
+            sc = GaussianScene(*(getattr(scene, n).detach().to(dtype).clone()
+                                 for n in PARAM_NAMES), scene.alive.to(dtype))
+            rows = grows._rows_plain(sc, cam.to(dtype), deg[0], sm)
+            return torch.autograd.grad((rows * dgw.to(dtype)).sum(),
+                                       [getattr(sc, n) for n in PARAM_NAMES])
+
+        f32, f64 = chain_grads(torch.float32), chain_grads(torch.float64)
+        for name, k, a, b in zip(PARAM_NAMES, got_g, f32, f64):
+            ek, ea = rel_l2(k, b), rel_l2(a, b)
+            print(f"{kind} C={c} active {active} mod {mod} {name}: kernel {ek:.3e}, "
+                  f"float32 chain {ea:.3e} (rel_l2 against the float64 chain)")
+            assert ek <= ea, name
+
+
+def test_gaussian_rows_kernels_take_every_degree_and_refuse_the_rest(dev):
+    """SH degrees 0-4 (active below and at the maximum), C 1 and 2, 1 and
+    300 rows (a partial CTA): the forward equals the chain bit for bit and
+    the backward is finite and zero for a zero cotangent; other widths,
+    dtypes, devices and channel counts raise."""
+    from nlos_gaussian_renderer_tpu_torch.ops import gaussian_rows as grows
+
+    rng = np.random.default_rng(5)
+    cam = torch.tensor([0.05, 0.0, -0.1], device=dev)
+    for max_deg in range(5):
+        for n in (1, 300):
+            d = scene_np(n, 11)
+            d["sh_rest"] = (0.3 * rng.normal(size=(n, (max_deg + 1) ** 2 - 1))
+                            ).astype(np.float32)
+            scene = scene_from_numpy(d, dev)
+            for occ in (False, True):
+                st = RenderSettings(num_sampling_points=8, start=60, end=140, occlusion=occ)
+                for active in sorted({max(max_deg - 1, 0), max_deg}):
+                    deg = torch.full((1,), active, dtype=torch.int32, device=dev)
+                    ops = _row_operands(scene, cam, deg)
+                    got = grows.gaussian_rows_fwd(*ops, 1.0, 2 if occ else 1)
+                    ref = grows._rows_plain(scene, cam, deg[0], st).detach()
+                    assert torch.equal(got, ref), (max_deg, n, occ, active,
+                                                   _ulps(got, ref).tolist())
+                    zero = grows.gaussian_rows_bwd(*ops, 1.0, torch.zeros_like(got))
+                    assert all(bool((t == 0).all()) for t in zero)
+    ops = _row_operands(scene, cam, deg)
+    with pytest.raises(ValueError):
+        grows.gaussian_rows_fwd(*ops, 1.0, 3)
+    with pytest.raises(ValueError):
+        grows.gaussian_rows_fwd(*ops[:5], ops[5][:, :2].contiguous(), *ops[6:], 1.0, 1)
+    with pytest.raises(TypeError):
+        grows.gaussian_rows_fwd(*ops[:-1], deg.long(), 1.0, 1)
+    with pytest.raises(ValueError):
+        grows.gaussian_rows_fwd(ops[0].cpu(), *ops[1:], 1.0, 1)
+    with pytest.raises(ValueError):
+        grows.gaussian_rows_bwd(*ops, 1.0, torch.zeros((300, 13), device=dev))
 
 
 def _worklist_case(case, dev):
