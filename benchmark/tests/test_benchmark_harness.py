@@ -1,8 +1,9 @@
 """The harness on the CPU: cells, configurations and metrics found by name,
 a cell added by files alone, the result line's keys, the imports of a run,
-the exits without a card, and `correct` against faults planted in the
-timed path (the kernels' plain versions stand in for the card, at a small
-size and with chunks of 10 steps, so the tests run in minutes)."""
+the exits without a card, `correct` against faults planted in the timed
+path, and the program-side TF32 control of `benchmark/calibrate.py` (the
+kernels' plain versions stand in for the card, at a small size and with
+chunks of 10 steps, so the tests run in minutes)."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import time
 import pytest
 import torch
 
-from benchmark import harness, program
+from benchmark import calibrate, harness, inputs, program
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
@@ -128,6 +129,64 @@ def test_an_altered_histogram_is_not_correct(tiny, monkeypatch):
     result = run_tiny(root, man, monkeypatch)
     assert not result["correct"]
     assert result["checked"]["hist_gap"]["value"] > TINY_LIMITS["hist_gap"]
+
+
+def test_tf32_rounds_to_nearest_even_at_ten_bits():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(100_000, generator=g) * torch.exp(40 * torch.rand(100_000, generator=g) - 20)
+    got = calibrate.tf32(x)
+    # Against float64: the quantum of a 10-bit mantissa, and torch.round's
+    # ties to even.
+    x64 = x.double()
+    q = torch.ldexp(torch.ones_like(x64), torch.frexp(x64).exponent - 11)
+    assert torch.equal(got.double(), torch.round(x64 / q) * q)
+    assert bool(((got - x).abs() <= 2.0 ** -11 * x.abs()).all())
+    # Values already at 10 bits stay; ties go to the even neighbour.
+    assert torch.equal(calibrate.tf32(got), got)
+    ulp = 2.0 ** -10
+    ties = torch.tensor([1 + ulp / 2, 1 + 3 * ulp / 2, -(1 + ulp / 2), 2 + 3 * ulp])
+    assert calibrate.tf32(ties).tolist() == [1.0, 1 + 2 * ulp, -1.0, 2 + 4 * ulp]
+    inf = torch.tensor([float("inf"), -float("inf")])
+    assert torch.equal(calibrate.tf32(inf), inf)
+
+
+def _at_tf32(t) -> bool:
+    return torch.equal(calibrate.tf32(t), t)
+
+
+@pytest.mark.parametrize("renderer,field", [("pallas_rsort", "sampled"),
+                                            ("pallas_analytic", "analytic")])
+def test_the_program_tf32_control_reaches_the_field_kernels(monkeypatch, renderer, field):
+    """Planted in the timed path, the control hands every contraction of
+    the field (K3/K4 or K5/K6, here their plain versions) the tile-centred
+    forms and the ray-side operand at TF32, and so moves the histogram of
+    the program's first chunk; with nothing rounded, the same path gives
+    the sound histogram."""
+    from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic, fused_rsort
+
+    monkeypatch.setattr(program, "CHUNK", CHUNK)
+    config = dict(TINY_CONFIG, renderer=renderer, field=field, optimization=harness.load_json(
+        os.path.join(BENCH, "configs", "zaragoza256-rsort.json"))["optimization"])
+    inp = inputs.make_inputs(config, dict(TINY_TRAFFIC, max_steps=CHUNK), 424242, "cpu",
+                             chunk=config["reference_chunk"])
+    module = fused_rsort if field == "sampled" else fused_analytic
+    real, seen = module.quad_form, []
+
+    def spy(g, x):
+        seen.append(_at_tf32(g) and _at_tf32(x))
+        return real(g, x)
+
+    monkeypatch.setattr(module, "quad_form", spy)
+    sound = calibrate.program_chunk(config, inp)[1][1]
+    assert seen and not any(seen)
+    seen.clear()
+    with calibrate.program_tf32():
+        planted = calibrate.program_chunk(config, inp)[1][1]
+    assert seen and all(seen)
+    assert not torch.equal(planted, sound)
+    with calibrate.program_tf32(lambda t: t):
+        plain = calibrate.program_chunk(config, inp)[1][1]
+    assert torch.equal(plain, sound)
 
 
 def test_forbidden_modules_compare_whole_top_level_names():
