@@ -11,7 +11,17 @@ few seeds those of the controls and the planted faults (`CONTROLS`):
 - `fault_histogram_5pct`: the reference with each step's histogram altered
   by 5% where it is produced;
 - `fault_state_unchanged`: the input state, as if no step had run. It reads
-  1 on `change_gap` by definition.
+  1 on `change_gap` by definition;
+- `fault_densify_key` and `fault_densify_skipped` (cells whose checked
+  chunk ends with a densify event): the program with its event's donors
+  drawn under the post-update step counter plus 1, and with the event
+  skipped, planted in `train.fit`'s `densify_step`.
+
+Where the chunk ends with an event, each state is judged against the fp32
+reference's chunk followed by the event with the donors recovered from
+that state (`benchmark/donors.py`); the reference-side controls make their
+own event with the rule's draws at the keyed uniforms, as the program
+would.
 
 and, as a witness for `control_program_tf32`, `witness_program_plain`:
 the same path with nothing rounded, which a sound program's limits pass.
@@ -37,7 +47,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CONTROLS = ("control_tf32", "control_program_tf32", "fault_histogram_5pct",
-            "fault_state_unchanged")
+            "fault_state_unchanged", "fault_densify_key", "fault_densify_skipped")
 WITNESSES = ("witness_program_plain",)
 
 
@@ -105,6 +115,25 @@ def program_tf32(rounding=tf32):
 
 
 @contextlib.contextmanager
+def densify_fault(name: str):
+    """The program's densify event with its donors drawn under the next
+    step counter (`fault_densify_key`), or skipped (`fault_densify_skipped`)."""
+    from nlos_gaussian_renderer_tpu_torch import train
+
+    real = train.densify_step
+
+    def shifted(scene, opt_state, seed, step, cap_max, **kw):
+        return real(scene, opt_state, seed, step + 1, cap_max, **kw)
+
+    def skipped(*a, **kw):
+        return None
+
+    new = {"fault_densify_key": shifted, "fault_densify_skipped": skipped}[name]
+    with mock.patch.object(train, "densify_step", new):
+        yield
+
+
+@contextlib.contextmanager
 def altered_histograms(factor: float):
     """Every histogram the reference renders, times `factor`."""
     from benchmark import reference
@@ -143,27 +172,54 @@ def follow_args(config: dict, inp: dict) -> tuple:
             config["reference_chunk"])
 
 
+def event_counter(config: dict, inp: dict):
+    """The step counter of the densify event after the first chunk, or None."""
+    from benchmark import donors, program
+
+    return donors.event_counter(config["optimization"], inp["step"], program.CHUNK)
+
+
+def judged(config: dict, inp: dict, ref: dict, state: dict) -> dict:
+    """The fp32 reference `ref` (`reference.follow` of the first chunk) as
+    it judges `state`: followed by the chunk's densify event, its donors
+    recovered from `state`, where the chunk ends with one."""
+    from benchmark import donors, reference
+
+    counter = event_counter(config, inp)
+    if counter is None:
+        return ref
+    with reference.precision("fp32"):
+        return donors.with_event(ref, config["optimization"], counter, state["params"],
+                                 inp["rng"] + 1)
+
+
 def control_numbers(name: str, config: dict, inp: dict, ref: dict, sound_hist=None) -> dict:
     """The compared numbers of the control, fault or witness `name`
     (`CONTROLS`, `WITNESSES`) against `ref`, the fp32 reference's follow of
-    the first chunk. With `sound_hist`, the sound program's last histogram
-    on the same inputs, the program-side ones also give `hist_vs_sound`,
-    their own histogram's relative distance from it."""
-    from benchmark import check, reference
+    the first chunk (`judged` adds the chunk's densify event). With
+    `sound_hist`, the sound program's last histogram on the same inputs,
+    the program-side ones also give `hist_vs_sound`, their own histogram's
+    relative distance from it."""
+    from benchmark import check, donors, reference
 
     args = follow_args(config, inp)
     p0, last_target = inp["params"], args[6][-1]  # args[6]: the steps' targets
-    if name in ("control_program_tf32", "witness_program_plain"):
-        with program_tf32(tf32 if name == "control_program_tf32" else lambda t: t):
+    program_side = {"control_program_tf32": lambda: program_tf32(tf32),
+                    "witness_program_plain": lambda: program_tf32(lambda t: t),
+                    "fault_densify_key": lambda: densify_fault("fault_densify_key"),
+                    "fault_densify_skipped": lambda: densify_fault("fault_densify_skipped")}
+    if name in program_side:
+        with program_side[name]():
             state, last = program_chunk(config, inp)
-        out = check.numbers(p0, state, last, ref)
+        out = check.numbers(p0, state, last, judged(config, inp, ref, state))
         if sound_hist is not None:
             a, b = last[1].reshape(-1).double(), sound_hist.reshape(-1).double()
             out["hist_vs_sound"] = float((a - b).norm() / b.norm().clamp_min(1e-300))
         return out
     if name == "fault_state_unchanged":
         state = dict(params=p0, mu=inp["mu"], nu=inp["nu"], count=inp["count"])
-        return check.numbers(p0, state, (ref["losses"][-1], ref["hist"], last_target), ref)
+        return check.numbers(p0, state, (ref["losses"][-1], ref["hist"], last_target),
+                             judged(config, inp, ref, state))
     if name == "control_tf32":
         with reference.precision("tf32"):
             r = reference.follow(*args)
@@ -172,8 +228,12 @@ def control_numbers(name: str, config: dict, inp: dict, ref: dict, sound_hist=No
             r = reference.follow(*args)
     else:
         raise KeyError(f"no control {name!r}: {CONTROLS + WITNESSES}")
+    counter = event_counter(config, inp)
+    if counter is not None:  # the reference in the program's place draws its own donors
+        r = donors.with_event(r, config["optimization"], counter, None, inp["rng"] + 1)
     state = dict(params=r["params"], mu=r["mu"], nu=r["nu"], count=r["count"])
-    return check.numbers(p0, state, (r["losses"][-1], r["hist"], last_target), ref)
+    return check.numbers(p0, state, (r["losses"][-1], r["hist"], last_target),
+                         judged(config, inp, ref, state))
 
 
 def readings(spec: dict, seed: int, controls=()) -> dict:
@@ -181,7 +241,7 @@ def readings(spec: dict, seed: int, controls=()) -> dict:
     with the seconds each took and the reference's peak memory."""
     import torch
 
-    from benchmark import check, inputs, program, reference
+    from benchmark import check, donors, inputs, program, reference
 
     config, traffic = spec["config"], dict(spec["traffic"], max_steps=program.CHUNK)
     dev = torch.device("cuda")
@@ -194,12 +254,14 @@ def readings(spec: dict, seed: int, controls=()) -> dict:
     t = time.perf_counter()
     with reference.precision("fp32"):
         ref = reference.follow(*args)
+    sound = judged(spec["config"], inp, ref, first_state)
     t_ref = time.perf_counter() - t
     out = dict(seed=seed, program_s=t_prog, reference_s=t_ref,
                reference_peak_bytes=torch.cuda.max_memory_allocated(dev),
                target_consistent=bool(torch.equal(first_last[2].reshape(-1),
                                                   args[6][-1].reshape(-1))),
-               program=check.numbers(inp["params"], first_state, first_last, ref))
+               event=sound.get("event"), event_consistent=donors.consistent(sound),
+               program=check.numbers(inp["params"], first_state, first_last, sound))
     for name in controls:
         t = time.perf_counter()
         out[name] = control_numbers(name, config, inp, ref, sound_hist=first_last[1])

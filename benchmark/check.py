@@ -14,7 +14,10 @@ compared are taken there:
   chunk, over the larger of the reference's norm of that leaf's change and
   the median leaf's;
 - `moment_gap`: the same for the norms of Adam's first moment after the
-  chunk, the optimizer's record of the chunk's gradients.
+  chunk, the optimizer's record of the chunk's gradients;
+- `donor_gap`: where a densify event follows the chunk's last step, how
+  far the program's donor draws lie from the rule's (`benchmark/donors.py`,
+  which also hands the reference's event the program's donors).
 
 A leaf whose gradient at the first step is under a thousandth of the
 median leaf's in the reference is left out of both leaf numbers (its
@@ -29,7 +32,7 @@ import torch
 
 from benchmark import reference
 
-NUMBERS = ("loss_gap", "hist_gap", "change_gap", "moment_gap")
+NUMBERS = ("loss_gap", "hist_gap", "change_gap", "moment_gap", "donor_gap")
 
 
 def _norm(t) -> float:
@@ -63,6 +66,7 @@ def numbers(p0: dict, prog: dict, prog_last: tuple, ref: dict) -> dict:
         change_gap=_leaf_gap(dp_prog, dp_ref, leaves),
         moment_gap=_leaf_gap({k: prog["mu"][k] for k in leaves},
                              {k: ref["mu"][k] for k in leaves}, leaves),
+        donor_gap=ref.get("donor_gap"),
     )
 
 

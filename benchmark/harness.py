@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from benchmark import check, inputs, reference, trace, work
+from benchmark import check, donors, inputs, reference, spans, trace, work
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
@@ -90,14 +90,38 @@ def smi(fields: str) -> str:
 
 
 CARD_FIELDS = "name,power.limit,clocks.sm,clocks.max.sm,clocks.mem,power.draw,temperature.gpu"
+# The densify event's kernels: those launched under `densify_step`.
+DENSIFY_LAYERS = [dict(layer="densify", functions=["densify_step"]),
+                  dict(layer="other", default=True)]
+
+
+# The most steps whose useful work a traced window counts: a longer window
+# counts every k-th step, spread over all its chunks, since each costs
+# ~18 ms on an H100 at 55k alive and a traced run has 360 s in all.
+USEFUL_STEPS = 1000
+
+
+def useful_work(kind: str, run, cams, scene: dict) -> tuple:
+    """(useful units a step, alive Gaussians a step) of the traced window:
+    each step's camera against the population as its chunk began, both
+    averaged over the window's steps (every k-th of them, USEFUL_STEPS)."""
+    from benchmark import program
+
+    geo = run.chunk_geometry
+    steps = range(0, len(cams), -(-len(cams) // USEFUL_STEPS))
+    units = [work.useful_units(kind, geo[i // program.CHUNK], cams[i], scene, chunk=32768)
+             for i in steps]
+    alive = [int((geo[i // program.CHUNK]["alive"] > 0.5).sum()) for i in steps]
+    return sum(units) / len(units), sum(alive) / len(alive)
 
 
 def run_cell(man: dict, name: str, seed: int, seconds: float, trace_on: bool,
              t_process: float, device="cuda", spec: dict = None, root: str = ROOT) -> dict:
     """Run the cell once; returns {'result' (the line's object), 'setup'
-    (the set-up's parts), 'card'}. `t_process` is the process's start on
-    `time.perf_counter`'s clock; `spec` replaces the cell's files (the
-    tests' small cells); `root` is the checkout whose files name them."""
+    (the set-up's parts), 'card', 'peaks', 'rec' (what the readers read)}.
+    `t_process` is the process's start on `time.perf_counter`'s clock;
+    `spec` replaces the cell's files (the tests' small cells); `root` is
+    the checkout whose files name them."""
     from benchmark import program
 
     spec = spec or cell_spec(man, name, root)
@@ -114,8 +138,9 @@ def run_cell(man: dict, name: str, seed: int, seconds: float, trace_on: bool,
     t = time.perf_counter()
     warm = traffic["warm_steps"]
     trace_steps = traffic["trace_chunks"] * program.CHUNK
-    max_steps = warm + (trace_steps + program.CHUNK if trace_on
-                        else int(seconds * traffic["max_steps_per_s"]) + program.CHUNK)
+    window_steps = traffic.get("window_steps")
+    max_steps = warm + program.CHUNK + (
+        trace_steps if trace_on else window_steps or int(seconds * traffic["max_steps_per_s"]))
     traffic = dict(traffic, max_steps=max_steps)
     inp = inputs.make_inputs(config, traffic, seed, dev, chunk=config["reference_chunk"])
     if dev.type == "cuda":
@@ -126,7 +151,7 @@ def run_cell(man: dict, name: str, seed: int, seconds: float, trace_on: bool,
     profiler = trace.Profiler() if trace_on else None
     run = program.Run(config, inp, warm, seconds, trace=trace_on,
                       trace_chunks=traffic["trace_chunks"], profiler=profiler,
-                      max_steps=max_steps)
+                      max_steps=max_steps, window_steps=window_steps)
     t_fit = time.perf_counter()
     run.run()
     if run.t0 is None or run.first is None:
@@ -150,21 +175,48 @@ def run_cell(man: dict, name: str, seed: int, seconds: float, trace_on: bool,
     if trace_on:
         t = time.perf_counter()
         cams, tgts = inputs.step_inputs(inp, config, run.steps0, trace_steps)
-        twin = program.eager_steps(config, run.trace_state, cams, tgts, steps=1,
-                                   profiler=trace.Profiler(with_stack=True))
+        events = (run.snap["counters"].get("chunk.densify_replays", 0)
+                  - run.counters0.get("chunk.densify_replays", 0))
+        dens = (trace.Profiler(with_stack=True), inp["rng"] + 1) if events else None
+        # The twin's capacities are fitted to the probes and the cameras of
+        # the window's first two chunks.
+        twin = program.eager_steps(config, run.trace_state, cams[:2 * program.CHUNK],
+                                   tgts[:2 * program.CHUNK], steps=1,
+                                   profiler=trace.Profiler(with_stack=True), densify=dens)
+        twin, dens_trace = twin if dens else (twin, None)
+        t_twin = time.perf_counter() - t
         summ = trace.summarise(run.traced, twin, steps, trace.load_layers())
-        units = [work.useful_units(kind, run.trace_state["params"], cam, sc) for cam in cams]
-        alive = int((run.trace_state["params"]["alive"] > 0.5).sum())
+        t_summ = time.perf_counter() - t
+        units, alive = useful_work(kind, run, cams, sc)
+        t_units = time.perf_counter() - t
         num_samples = (config["end"] - config["start"]) * config["num_sampling_points"] ** 2
-        bound = work.field_bound(sum(units) / len(units), alive, num_samples)
-        rec.update(traced=summ, field=dict(units_per_step=sum(units) / len(units),
-                                           alive=alive, **bound))
+        bound = work.field_bound(units, alive, num_samples)
+        prog = spans.summarise(run.traced, run.snap, run.counters0, run.t0, run.t1, steps,
+                               units, program.CHUNK)
+        # `raw`: the window as the port recorded it, for readers of spans and
+        # counters that `spans.summarise` does not summarise.
+        raw = dict(trace=run.traced, spans=run.snap["spans"], counters_open=run.counters0,
+                   counters_close=run.snap["counters"], t_open=run.t0, t_close=run.t1,
+                   steps=steps, chunk=program.CHUNK)
+        rec.update(traced=summ, field=dict(units_per_step=units, alive=alive, **bound),
+                   program=prog, raw=raw)
+        if dens_trace is not None:
+            by_op = trace.kernel_layers(dens_trace, DENSIFY_LAYERS)
+            rec["densify"] = dict(device_ms=sum(c["densify"] for c in by_op.values()) / 1e3)
         log(f"[bench] traced {steps} steps: device {summ['device_ms_per_step']} ms/step, "
-            f"busy {summ['busy_s']} of {summ['window_s']} s, layers {summ['layers_ms']}; "
-            f"useful units/step {rec['field']['units_per_step']:.6g} (bound "
-            f"{bound['seconds'] * 1e3:.6g} ms, {bound['set_by']}); "
-            f"{time.perf_counter() - t:.1f} s")
-        del twin
+            f"busy {summ['busy_s']} of {summ['window_s']} s (traced "
+            f"{summ['traced_window_s']} s), layers {summ['layers_ms']}; "
+            f"useful units/step {units:.6g} (bound {bound['seconds'] * 1e3:.6g} ms, "
+            f"{bound['set_by']}); twin {t_twin:.1f} s, device trace {t_summ - t_twin:.1f} s, "
+            f"useful work {t_units - t_summ:.1f} s, "
+            f"spans {time.perf_counter() - t - t_units:.1f} s")
+        log(f"[bench] the port's spans and counters: window counts {prog['window_counts']}, "
+            f"host-bound idle {prog['host_idle_share']} % (ms a chunk by span "
+            f"{prog['host_idle_ms_per_chunk_by_span']}), listed pairs a step "
+            f"{prog['listed_pairs_per_step']} (waste {prog['waste_ratio']}), rework before "
+            f"the window {prog['rework_s']} s, inside it {prog['rework_share']} %; "
+            f"densify event {rec.get('densify')}")
+        del twin, dens_trace
 
     # The check: the reference follows the first chunk from the inputs,
     # once the program's state is freed.
@@ -175,15 +227,21 @@ def run_cell(man: dict, name: str, seed: int, seconds: float, trace_on: bool,
         torch.cuda.empty_cache()
     t = time.perf_counter()
     cams, tgts = inputs.step_inputs(inp, config, 0, program.CHUNK)
+    counter = donors.event_counter(config["optimization"], inp["step"], program.CHUNK)
     with reference.precision("fp32"):
         ref = reference.follow(kind, inp["params"], inp["mu"], inp["nu"], inp["count"], cams,
                                tgts, sc, config["optimization"], config["sh_degree"],
                                config["reference_chunk"])
+        if counter is not None:
+            ref = donors.with_event(ref, config["optimization"], counter, first_state["params"],
+                                    inp["rng"] + 1)
     consistent = (torch.equal(first_last[2].reshape(-1), tgts[-1].reshape(-1))
-                  and first_state["count"] == ref["count"])
+                  and first_state["count"] == ref["count"] and donors.consistent(ref))
     values = check.numbers(inp["params"], first_state, first_last, ref)
     correct, shown = check.judge(values, cell["limits"], consistent)
     log(f"[bench] not compared: { {k: v for k, v in values.items() if k not in shown} }")
+    if counter is not None:
+        log(f"[bench] densify event at step counter {counter}: {ref['event']}")
     log(f"[bench] reference: {program.CHUNK} steps in {time.perf_counter() - t:.1f} s; "
         f"inputs consistent: {consistent}")
 
@@ -202,4 +260,4 @@ def run_cell(man: dict, name: str, seed: int, seconds: float, trace_on: bool,
         result["breakdown"] = {"device_ops": rec["traced"]["device_ops"],
                                "idle_gaps": rec["traced"]["idle_gaps"]}
     result["checked"] = shown
-    return dict(result=result, setup=setup, card=card_after, peaks=work.PEAKS)
+    return dict(result=result, setup=setup, card=card_after, peaks=work.PEAKS, rec=rec)

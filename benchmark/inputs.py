@@ -27,6 +27,10 @@ cell trains the same sizes, so its work, and the capacities `fit` fits to
 it, do not change from seed to seed. Rotations, albedos, SH bands, targets
 and the scan order come from the run's seed.
 
+A traffic may plant near-dead Gaussians (`near_dead`: every `every`-th
+alive row at opacity `opacity`), set without a draw, so that a densify
+event relocates as well as grows.
+
 The targets: each scan point's histogram is the mean of the reference's
 renders of the population at five interior scan points (`level_points`),
 bin by bin, times U(0.5, 1.5) noise drawn per (scan point, bin), so that
@@ -150,6 +154,10 @@ def make_inputs(config: dict, traffic: dict, seed: int, device, chunk: int = 102
     geometry.manual_seed(traffic["population_seed"])
     p = population(geometry, gen, traffic["slots"], traffic["alive"], traffic["sigma"],
                    config["sh_degree"], device)
+    plant = traffic.get("near_dead")
+    if plant:
+        o = plant["opacity"]
+        p["logit_opacities"][:traffic["alive"]:plant["every"]] = math.log(o / (1 - o))
     mu = {g: torch.zeros_like(p[g]) for g in reference.GROUPS}
     nu = {g: torch.zeros_like(p[g]) for g in reference.GROUPS}
     m, n = config["scan_grid"]

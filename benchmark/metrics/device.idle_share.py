@@ -1,5 +1,6 @@
 """The share of the traced window in which no kernel, copy or fill ran on
-the device (the union of the profiler's device intervals), in %."""
+the device (the union of the profiler's device intervals), in %. The
+tracing counter's kernel and its time are left out (`benchmark/trace.py`)."""
 
 
 def read(run: dict):

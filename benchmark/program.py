@@ -7,13 +7,19 @@ step's CUDA graph CHUNK times a chunk, as at its defaults) marks the run's
 phases: the first chunk's state and last step are kept for the check of
 `correct`; the warm-up ends at the callback after `warm_steps` steps (every
 capture, re-tune and overflow replay of the first chunks falls before it);
-the window then runs until the first callback at least `seconds` later,
-and `fit` is stopped there by an exception from the callback. The callback
-adds one `torch.cuda.synchronize()` a chunk, after `fit`'s own read of the
-chunk's overflow flag has already waited for the device.
+the window then runs until the first callback at least `seconds` later
+(or, where the traffic gives `window_steps`, for exactly that many steps,
+so that runs of a population that grows inside the window do the same
+work however fast they go), and `fit` is stopped there by an exception
+from the callback. The callback adds one `torch.cuda.synchronize()` a
+chunk, after `fit`'s own read of the chunk's overflow flag has already
+waited for the device.
 
 With `trace`, the window is instead `trace_chunks` whole chunks under
-`torch.profiler` (`benchmark/trace.py`), and `fit` stops after them.
+`torch.profiler` (`benchmark/trace.py`), and `fit` stops after them. The
+port's own spans and counters (`utils/profiling`) are switched on for the
+whole `fit` call, and read at the window's two ends: the counters just
+before the profiler starts, everything just after it stops.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import torch
 from nlos_gaussian_renderer_tpu_torch import train
 from nlos_gaussian_renderer_tpu_torch.configs.default import Config, OptimizationParams
 from nlos_gaussian_renderer_tpu_torch.data.zaragoza import NLOSData
+from nlos_gaussian_renderer_tpu_torch.models.densify import densify_step
 from nlos_gaussian_renderer_tpu_torch.models.scene import FIELD_NAMES, GaussianScene
+from nlos_gaussian_renderer_tpu_torch.utils import profiling
 
 from benchmark import inputs as binputs
 
@@ -109,19 +117,25 @@ class Run:
     target_hist) after the first chunk) and `t_first` (its host time),
     `t0`/`t1` and `steps0`/`steps1` (the window's bounds), `traced` (the
     profiler's trace), `trace_state` (the state as the traced window
-    began) and `population` (`population_summary` at the window's ends)."""
+    began), `chunk_geometry` (the means, log-scales, quaternions and alive
+    mask as each traced chunk began), `counters0` and `snap` (the port's
+    counters as the traced window opened, and its spans and counters as
+    it closed) and `population` (`population_summary` at the window's
+    ends)."""
 
     def __init__(self, config: dict, inp: dict, warm_steps: int, seconds: float,
                  trace: bool = False, trace_chunks: int = 2, profiler=None,
-                 max_steps: int = 200_000):
+                 max_steps: int = 200_000, window_steps: int = None):
         self.config, self.inp = config, inp
-        self.warm, self.seconds = warm_steps, seconds
+        self.warm, self.seconds, self.window_steps = warm_steps, seconds, window_steps
         self.trace, self.trace_chunks, self.profiler = trace, trace_chunks, profiler
         self.num_iters = max_steps
         self.first = None
         self.t0 = self.t1 = self.steps0 = self.steps1 = None
         self.trace_state = None
         self.traced = None
+        self.chunk_geometry = []
+        self.counters0 = self.snap = None
         self.population = []
         self.t_first = None
         self.dev = inp["targets"].device
@@ -145,17 +159,22 @@ class Run:
                 self.t0, self.steps0 = now, done
                 if self.trace:
                     self.trace_state = state_dict(state)
+                    self.chunk_geometry.append(_geometry(state))
+                    self.counters0 = profiling.snapshot()["counters"]
                     self.profiler.start()
                     self.t0 = self._sync()
             return
         if self.trace:
             if done >= self.steps0 + self.trace_chunks * CHUNK:
-                self.traced = self.profiler.stop()
                 self.t1, self.steps1 = self._sync(), done
+                self.traced = self.profiler.stop()
+                self.snap = profiling.snapshot()
                 self.population.append(population_summary(state))
                 raise _Stop
+            self.chunk_geometry.append(_geometry(state))
             return
-        if now - self.t0 >= self.seconds:
+        if (done >= self.steps0 + self.window_steps if self.window_steps
+                else now - self.t0 >= self.seconds):
             self.t1, self.steps1 = now, done
             self.population.append(population_summary(state))
             raise _Stop
@@ -167,6 +186,9 @@ class Run:
         state = train_state(self.config, self.inp)
         # The port prints its re-tunes to stdout; the run's stdout is its
         # result line alone.
+        if self.trace:
+            profiling.reset()
+            profiling.enable_tracing(True)
         with contextlib.redirect_stdout(sys.stderr):
             try:
                 train.fit(cfg, optim, data, num_iters=self.num_iters, log_every=LOG_EVERY,
@@ -174,7 +196,17 @@ class Run:
                           device=self.dev)
             except _Stop:
                 pass
+            finally:
+                profiling.enable_tracing(False)
         return self
+
+
+def _geometry(state) -> dict:
+    """The fields the useful work follows, of a state `fit` handed the
+    callback (its own copy: kept without another)."""
+    sc = state.scene
+    return dict(means=sc.means.detach(), log_scales=sc.log_scales.detach(),
+                quats=sc.quats.detach(), alive=sc.alive)
 
 
 def render_settings(config: dict, scene, probes, cams):
@@ -192,10 +224,14 @@ def render_settings(config: dict, scene, probes, cams):
     return settings, box
 
 
-def eager_steps(config: dict, state_d: dict, cams, targets, steps: int, profiler=None):
+def eager_steps(config: dict, state_d: dict, cams, targets, steps: int, profiler=None,
+                densify=None):
     """`steps` train steps of the port's step function run eagerly (not from
     a graph) from a copy of `state_d`, the first one outside `profiler`:
-    what the trace's eager twin profiles."""
+    what the trace's eager twin profiles. Returns the profiler's trace. With
+    `densify` ((profiler, seed)), one `densify_step` follows, as `fit`
+    keys it (seed, the post-update step counter), under that profiler, and
+    the two traces are returned."""
     inp = dict(params=state_d["params"], mu=state_d["mu"], nu=state_d["nu"],
                count=state_d["count"], step=state_d["count"] + 1,
                sh_degree=config["sh_degree"])
@@ -211,4 +247,10 @@ def eager_steps(config: dict, state_d: dict, cams, targets, steps: int, profiler
         profiler.start()
     for i in range(1, steps + 1):
         step(state, cams[i:i + 1], targets[i:i + 1], *consts)
-    return profiler.stop() if profiler is not None else None
+    twin = profiler.stop() if profiler is not None else None
+    if densify is None:
+        return twin
+    dprof, seed = densify
+    dprof.start()
+    densify_step(state.scene, state.opt_state, seed, state.step, config["optimization"]["cap_max"])
+    return twin, dprof.stop()

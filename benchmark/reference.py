@@ -26,7 +26,20 @@ The function, for one confocal scan point at camera `cam`:
   target histogram;
 - the update: Adam over the six parameter groups in optax's formula (b1
   0.9, b2 0.999, eps 1e-15), the position group's learning rate the
-  log-linear decay at the update count before the step.
+  log-linear decay at the update count before the step;
+- MCMC densification ("3D Gaussian Splatting as MCMC", Kheradmand et al.
+  2024), after each step whose post-update step counter the schedule
+  names (`densify_fires`): alive Gaussians at opacity <= 0.005 are
+  relocated onto donors drawn in proportion to opacity among the other
+  alive ones; then dead slots are revived, in slot order, up to
+  min(cap_max, int(f32(1.05) f32(n_alive))) alive, each cloned from a
+  donor drawn in proportion to opacity among the alive ones. A donor split
+  into N copies (itself and the rows that took it) gives each the opacity
+  1 - (1 - o)^(1/N) and its scale times o / sum_{i<=N} sum_{k<i} C(i-1, k)
+  (-1)^k o_new^(k+1) / sqrt(k+1) (the binomial table in float64, N at
+  most 51); Adam's moments are zeroed on every row written and every
+  donor. The donors are a sampling decision: `densify_event` takes them
+  from its caller.
 """
 
 from __future__ import annotations
@@ -312,12 +325,18 @@ def field(kind: str, g: dict, grid: dict, cam, chunk: int, volume_centre=None):
 def histogram(kind: str, p: dict, cam, scene: dict, sh_degree: int, chunk: int):
     """(num_r,) rendered histogram of the parameters `p` at `cam`; `scene`
     holds the grid's constants (volume_position, volume_size, ns, start,
-    end, c, dt)."""
+    end, c, dt). Dead slots weigh 0 and are left out of the field (their
+    gradient is 0 either way)."""
     box = volume_box(scene["volume_position"], scene["volume_size"], cam.dtype, cam.device)
     grid = shell_grid(cam, box, scene["ns"], scene["start"], scene["end"], scene["c"],
                       scene["dt"])
     centre = torch.as_tensor(scene["volume_position"], dtype=cam.dtype, device=cam.device)
-    f = field(kind, gaussians(p, cam, sh_degree), grid, cam, chunk, centre)
+    g = gaussians(p, cam, sh_degree)
+    alive = p["alive"] > 0.5
+    if not bool(alive.all()):
+        rows = torch.nonzero(alive)[:, 0]
+        g = {k: v.index_select(0, rows) for k, v in g.items()}
+    f = field(kind, g, grid, cam, chunk, centre)
     att = torch.sin(grid["theta"])[:, None].expand(-1, scene["ns"]).reshape(1, -1)
     att = att / grid["r"][:, None] ** 2
     y2 = float(scene["volume_position"][1]) ** 2
@@ -388,3 +407,113 @@ def follow(kind: str, p0: dict, mu0: dict, nu0: dict, count0: int, cams, targets
             first = grads
     return dict(params=p, mu=mu, nu=nu, count=count, losses=torch.stack(losses),
                 hist=hist, first_grads=first)
+
+
+# --- MCMC densification ----------------------------------------------------------
+
+DEAD_OPACITY = 0.005
+GROWTH = 1.05
+MAX_SPLIT = 51
+
+
+def densify_fires(optim: dict, counter: int) -> bool:
+    """Whether an event follows the step whose post-update step counter is
+    `counter`: densification on, from < counter < until, and counter a
+    multiple of the interval."""
+    return (bool(optim.get("mcmc_densification_flag"))
+            and optim["densify_from_iter"] < counter < optim["densify_until_iter"]
+            and counter % optim["densification_interval"] == 0)
+
+
+def relocation_table(device) -> torch.Tensor:
+    """(MAX_SPLIT + 1, MAX_SPLIT) float64 S[n, k] = sum_{i=k+1..n} C(i-1, k)
+    (-1)^k / sqrt(k+1)."""
+    t = torch.zeros((MAX_SPLIT + 1, MAX_SPLIT), dtype=torch.float64)
+    for i in range(1, MAX_SPLIT + 1):
+        for k in range(i):
+            t[i, k] = math.comb(i - 1, k) * (-1.0) ** k / math.sqrt(k + 1.0)
+    return torch.cumsum(t, dim=0).to(device)
+
+
+def relocated(opacity, scale, copies):
+    """(opacity, scale) of each of `copies` (M,) copies of Gaussians of
+    opacity (M,) and scale (M, 3), in their dtype; the sum over the table
+    in float64."""
+    n = torch.clamp(copies.to(torch.int64), 1, MAX_SPLIT)
+    o = opacity.double()
+    o_new = 1.0 - torch.clamp(1.0 - o, 1e-10, 1.0) ** (1.0 / n.double())
+    powers = o_new[:, None] ** torch.arange(1, MAX_SPLIT + 1, dtype=torch.float64,
+                                           device=o.device)[None, :]
+    denom = (relocation_table(o.device)[n] * powers).sum(-1)
+    coeff = o / torch.clamp(denom, min=1e-12)
+    return o_new.to(opacity.dtype), scale * coeff.to(scale.dtype)[:, None]
+
+
+def draw(weights, u):
+    """(n,) rows drawn from the weights by inverse CDF at the uniforms `u`
+    (n,) in [0, 1): the row whose interval [cdf[j] - w[j], cdf[j]) of the
+    float64 CDF holds u * total, a row of weight 0 never."""
+    cdf = torch.cumsum(weights.double(), dim=0)
+    idx = torch.searchsorted(cdf, u.double() * cdf[-1], right=True)
+    rows = torch.arange(weights.shape[0], device=weights.device)
+    return torch.minimum(idx, torch.where(weights > 0, rows, 0).amax())
+
+
+def _split(p: dict, weights, targets, donors):
+    """Copy each target row from its donor and split every donor into its
+    copies (`relocated`); returns the rows touched. No donor weighs
+    anything: nothing is written."""
+    cap = targets.shape[0]
+    touched = torch.zeros(cap, dtype=torch.bool, device=targets.device)
+    if not bool((weights.double().sum() > 0)):
+        return touched
+    counts = torch.bincount(donors[targets], minlength=cap)
+    op, scale = relocated(torch.sigmoid(p["logit_opacities"][:, 0]),
+                          torch.exp(p["log_scales"]), counts + 1)
+    op = torch.clamp(op, DEAD_OPACITY, 1.0 - 1e-7)
+    logit = torch.log(op / (1.0 - op))[:, None]
+    log_scale = torch.log(torch.clamp(scale, min=1e-12))
+    rows = torch.nonzero(targets)[:, 0]
+    src = donors[rows]
+    for k in ("means", "quats", "sh_dc", "sh_rest"):
+        p[k][rows] = p[k][src]
+    split = torch.nonzero(counts > 0)[:, 0]
+    p["logit_opacities"][rows] = logit[src]
+    p["log_scales"][rows] = log_scale[src]
+    p["logit_opacities"][split] = logit[split]
+    p["log_scales"][split] = log_scale[split]
+    touched[rows] = True
+    touched[split] = True
+    return touched
+
+
+@torch.no_grad()
+def densify_event(p: dict, mu: dict, nu: dict, cap_max: int, pick) -> dict:
+    """One MCMC densification event in place on `p`, `mu` and `nu` (the
+    module docstring). `pick(which, weights, targets)` gives the (cap,)
+    donor rows of the target rows (which 0: relocation, 1: growth), drawn
+    from the (cap,) weights. Returns {'relocated', 'revived'}: the rows of
+    each phase (bool (cap,))."""
+    alive = p["alive"] > 0.5
+    op = torch.sigmoid(p["logit_opacities"][:, 0]) * p["alive"]
+    dead = alive & (op <= DEAD_OPACITY)
+    w0 = torch.where(alive & ~dead, op, torch.zeros_like(op))
+    touched = _split(p, w0, dead, pick(0, w0, dead))
+
+    n_alive = int(alive.sum())
+    grown = int(torch.tensor(float(n_alive), dtype=torch.float32)
+                * torch.tensor(GROWTH, dtype=torch.float32))
+    num_new = max(min(cap_max, grown) - n_alive, 0)
+    free = ~alive
+    revive = free & (torch.cumsum(free.to(torch.int64), dim=0) <= num_new)
+    w1 = torch.where(alive, torch.sigmoid(p["logit_opacities"][:, 0]), torch.zeros_like(op))
+    touched |= _split(p, w1, revive, pick(1, w1, revive))
+    if bool(w1.double().sum() > 0):
+        p["alive"][revive] = 1.0
+    else:
+        revive = torch.zeros_like(revive)
+    for k in GROUPS:
+        mu[k][touched] = 0.0
+        nu[k][touched] = 0.0
+    return dict(relocated=dead if bool(w0.double().sum() > 0) else torch.zeros_like(dead),
+                revived=revive)

@@ -15,7 +15,11 @@ ones, and the set-up's rework.
   a step, over the useful pairs a step (`benchmark/work.py`).
 - `rework_s`: the seconds of `chunk.capture`, `gate.retune` and
   `gate.overflow_replay` spans (outermost, so none counts twice) that
-  ended before the window opened.
+  ended before the window opened;
+- `rework_share`: the host time of the same spans opened inside the
+  traced window (up to its close), over the window, in %;
+- `window_counts`: what the port's host counters of the gate and the
+  chunk (`COUNTED`) added over the window.
 
 Every reader takes what the port recorded and returns None where it
 recorded nothing (a program without the spans or the counter).
@@ -31,6 +35,7 @@ from benchmark import trace as btrace
 SPAN_CAT = "user_annotation"
 REWORK = ("chunk.capture", "gate.retune", "gate.overflow_replay")
 LISTED = "cull.listed_pairs"
+COUNTED = ("gate.retunes", "gate.overflow_replays", "chunk.captures", "chunk.densify_replays")
 NO_SPAN = "(no span)"
 
 
@@ -61,12 +66,12 @@ def idle_stretches(window_trace: dict, t0: float, t1: float) -> list:
         bound = False
         if i < len(every):
             ts = every[i]["ts"]
-            for e in every[i:]:
-                if e["ts"] != ts:
-                    break
+            while i < len(every) and every[i]["ts"] == ts:
+                e = every[i]
                 cid = e.get("args", {}).get("correlation")
                 if first_of.get(cid) == id(e) and launch_end.get(cid, s) > s:
                     bound = True
+                i += 1
         out.append((s, g_end, bound))
     return out
 
@@ -89,7 +94,8 @@ def charge(stretches, window_trace: dict) -> dict:
 
 
 def host_idle(window_trace: dict) -> dict:
-    """{'host_idle_share' (% of the window), 'host_idle_us', 'queued_idle_us',
+    """{'host_idle_share' (% of the window, the tracing counter's kernel
+    time left out as `benchmark/trace.py` leaves it), 'host_idle_us', 'queued_idle_us',
     'by_span_us' ({span: host-bound us})}, or {} without a window."""
     bounds = btrace.window_bounds(window_trace)
     if bounds is None or bounds[1] <= bounds[0]:
@@ -98,7 +104,9 @@ def host_idle(window_trace: dict) -> dict:
     st = idle_stretches(window_trace, t0, t1)
     bound = [x for x in st if x[2]]
     host_us = sum(e - s for s, e, _ in bound)
-    return dict(host_idle_share=100.0 * host_us / (t1 - t0), host_idle_us=host_us,
+    counting = btrace.busy_us([e for e in btrace._complete(window_trace, btrace.DEVICE_CATS)
+                               if btrace.tracing_only(e)], t0, t1)
+    return dict(host_idle_share=100.0 * host_us / (t1 - t0 - counting), host_idle_us=host_us,
                 queued_idle_us=sum(e - s for s, e, b in st if not b),
                 by_span_us=charge(bound, window_trace))
 
@@ -111,29 +119,43 @@ def waste_ratio(counters0: dict, counters1: dict, steps: int, units_per_step: fl
     return (counters1[LISTED] - counters0.get(LISTED, 0)) / steps / units_per_step
 
 
-def rework_s(spans: list, t_open: float):
-    """Seconds of the outermost REWORK spans that ended by `t_open` (on
-    `time.perf_counter`'s clock, as the spans), or None without spans."""
-    if not spans:
-        return None
-    total = 0.0
+def _outermost_rework(spans: list):
+    """The REWORK spans that have ended and lie inside no other."""
     for s in spans:
-        if s["name"] not in REWORK or s["end"] is None or s["end"] > t_open:
+        if s["name"] not in REWORK or s["end"] is None:
             continue
         p, nested = s["parent"], False
         while p >= 0 and not nested:
             nested = spans[p]["name"] in REWORK
             p = spans[p]["parent"]
         if not nested:
-            total += s["end"] - s["start"]
-    return total
+            yield s
 
 
-def summarise(window_trace: dict, snap: dict, counters0: dict, t_open: float, steps: int,
-              units_per_step: float, chunk: int) -> dict:
-    """What the three readers take: `snap` is the port's `profiling.snapshot()`
-    at the window's end, `counters0` its counters at the window's start, and
-    `chunk` the steps a chunk (the split is given in ms a chunk)."""
+def rework_s(spans: list, t_open: float):
+    """Seconds of the outermost REWORK spans that ended by `t_open` (on
+    `time.perf_counter`'s clock, as the spans), or None without spans."""
+    if not spans:
+        return None
+    return sum(s["end"] - s["start"] for s in _outermost_rework(spans) if s["end"] <= t_open)
+
+
+def rework_share(spans: list, t_open: float, t_close: float):
+    """% of [t_open, t_close] spent in the outermost REWORK spans opened
+    inside it (cut at t_close), or None without spans."""
+    if not spans or t_close <= t_open:
+        return None
+    inside = sum(min(s["end"], t_close) - s["start"] for s in _outermost_rework(spans)
+                 if t_open <= s["start"] < t_close)
+    return 100.0 * inside / (t_close - t_open)
+
+
+def summarise(window_trace: dict, snap: dict, counters0: dict, t_open: float, t_close: float,
+              steps: int, units_per_step: float, chunk: int) -> dict:
+    """What the readers take: `snap` is the port's `profiling.snapshot()`
+    at the window's end, `counters0` its counters at the window's start,
+    [t_open, t_close] the window on the spans' clock, and `chunk` the steps
+    a chunk (the split is given in ms a chunk)."""
     idle = host_idle(window_trace)
     counters = snap["counters"]
     listed = None
@@ -146,4 +168,6 @@ def summarise(window_trace: dict, snap: dict, counters0: dict, t_open: float, st
                                                 idle.get("by_span_us", {}).items()},
                 listed_pairs_per_step=listed,
                 waste_ratio=waste_ratio(counters0, counters, steps, units_per_step),
-                rework_s=rework_s(snap["spans"], t_open))
+                rework_s=rework_s(snap["spans"], t_open),
+                rework_share=rework_share(snap["spans"], t_open, t_close),
+                window_counts={k: counters.get(k, 0) - counters0.get(k, 0) for k in COUNTED})

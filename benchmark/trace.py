@@ -20,6 +20,11 @@ Frozen copies, so that a change to the program cannot move the yardstick:
 - Busy time is the union of the device intervals (kernels, copies, fills)
   inside the window, not the sum of their durations, so the idle share
   cannot fall below 0.
+- The port's tracing counter `listed_pairs` (a kernel in the step's graph
+  only while the port's tracing is on, which only the benchmark's traced
+  run switches on) is left out of every device sum, and its time out of
+  the window's length (`window_s`; `traced_window_s` keeps it), so that a
+  traced run reads the step the untraced program runs.
 
 A CUDA graph replays its kernels from one launch, with no frames: the
 replayed window's ops are charged to layers in the shares that an eager
@@ -44,6 +49,7 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 PACKAGE = "nlos_gaussian_renderer_tpu_torch"
 PLUMBING = ("ops/cuda_build.py",)
 SPIN = "spin_kernel"
+TRACING_ONLY = ("listed_pairs",)
 LAYERS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "layers.json")
 
 
@@ -91,8 +97,14 @@ def _complete(trace: dict, cats):
 
 
 def device_events(trace: dict) -> list:
-    """The device events of the trace, spin kernels left out."""
-    return [e for e in _complete(trace, DEVICE_CATS) if SPIN not in e["name"]]
+    """The device events of the trace, spin kernels and the tracing
+    counter's kernels left out."""
+    return [e for e in _complete(trace, DEVICE_CATS)
+            if SPIN not in e["name"] and not tracing_only(e)]
+
+
+def tracing_only(event: dict) -> bool:
+    return any(k in event["name"] for k in TRACING_ONLY)
 
 
 def window_bounds(trace: dict):
@@ -101,7 +113,7 @@ def window_bounds(trace: dict):
     one."""
     spins = sorted((e for e in _complete(trace, DEVICE_CATS) if SPIN in e["name"]),
                    key=lambda e: e["ts"])
-    ev = device_events(trace)
+    ev = [e for e in _complete(trace, DEVICE_CATS) if SPIN not in e["name"]]
     if not ev or not spins:
         return None
     first = min(e["ts"] for e in ev)
@@ -297,11 +309,15 @@ def summarise(window_trace: dict, twin_trace, steps: int, layers: list) -> dict:
                     device_ops=[], idle_gaps=[])
     t0, t1 = bounds
     busy = busy_us(ev, t0, t1)
+    counting = busy_us([e for e in _complete(window_trace, DEVICE_CATS) if tracing_only(e)],
+                       t0, t1)
     durs = op_durations(e for e in ev if t0 <= e["ts"] <= t1)
     twin = kernel_layers(twin_trace, layers) if twin_trace is not None else {}
     per_layer = layer_us(durs, twin, layers)
-    return dict(window_s=(t1 - t0) / 1e6, busy_s=busy / 1e6,
+    return dict(window_s=(t1 - t0 - counting) / 1e6, traced_window_s=(t1 - t0) / 1e6,
+                busy_s=busy / 1e6,
                 device_ms_per_step=busy / 1e3 / steps,
                 layers_ms={k: v / 1e3 / steps for k, v in per_layer.items()},
                 device_ops=[[n, us / 1e6] for n, us in durs.most_common(10)],
                 idle_gaps=idle_gaps(window_trace, t0, t1))
+
