@@ -24,7 +24,7 @@ and the reference regime's pilot with the last tools.
 
 Phases:
 
-  1. build the twelve CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
+  1. build the sixteen CUDA kernels from `nlos_gaussian_renderer_tpu_torch/csrc`;
   2. fit the capacities (rsort caps on the bench's three probe cameras; the
      tile `k_max` from 2048 by doubling on the corners and middle of the
      256x256 scan grid);
@@ -40,7 +40,11 @@ Phases:
      version's count and K3's pairs; a second launch adds as much again);
      then the per-Gaussian rows (`gaussian_rows_fwd`, bit for bit the
      plain chain's, and `gaussian_rows_bwd`, rel_l2 <= 1e-4 of autograd
-     through it) at SH degree 3;
+     through it) at SH degree 3; then the rsort cull's L1 (`cull_geometry`),
+     L2 (`cull_layout`) and L3 (`wide_gather_fwd` / `_bwd`), each bit for
+     bit the plain chain's on the same CUDA tensors, at the tuned train
+     spec and at the probe capacity (their CUDA-graph times come from
+     phase 10);
      then K1-K4 once more, at the spec the tools tune (t_chunk 32, gate_bins
      4: seven radial chunks), and K1/K2 at `RSortSpec`'s default t_chunk 8
      (25 chunks), with the same gates (the kernels line keeps the train
@@ -97,8 +101,9 @@ Phases:
      kernels line's ms; events around back-to-back calls time the host's
      launches, printed beside, before any capture and right after the
      kernel's own, with the host's cost a call),
-     the card's launch floor (a one-element fill_), `rsort_schedule` and
-     K2 at `tune_rsort_spec`'s probe capacity the same way, and one
+     the card's launch floor (a one-element fill_), `rsort_schedule`,
+     K2 at `tune_rsort_spec`'s probe capacity, L1-L3 (the kernels line's
+     ms) and a whole `rsort_cull` the same way, and one
      `rsort_schedule` call's device events (after the gather: the
      full_perm cast, K1 and K2, gated);
  11. the K9 microbenchmark (`bench_worklist_kernel`), counters reset before
@@ -273,7 +278,7 @@ import traceback
 import numpy as np
 import torch
 
-from nlos_gaussian_renderer_tpu_torch.tools import kernel_work, schedbench
+from nlos_gaussian_renderer_tpu_torch.tools import fitbench, kernel_work, schedbench
 from nlos_gaussian_renderer_tpu_torch.tools.kernel_work import cta_work, live_pairs, nbytes
 from nlos_gaussian_renderer_tpu_torch.tools import (
     C_LIGHT,
@@ -295,10 +300,12 @@ TRAIN_STEPS = 25
 WARMUP_STEPS = 3
 PROFILE_STEPS = 10
 ROW_KERNELS = ("gaussian_rows_fwd", "gaussian_rows_bwd")  # every kernel backend's step
+CULL_KERNELS = fitbench.CULL_KERNELS  # the rsort cull's L1-L3 (not pallas_dsort's)
 PATH_KERNELS = {
-    "pallas_rsort": ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd") + ROW_KERNELS,
+    "pallas_rsort": ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd") + ROW_KERNELS
+    + CULL_KERNELS,
     "pallas_analytic": ("cull_reduce", "build_work_lists", "analytic_fwd", "analytic_bwd")
-    + ROW_KERNELS,
+    + ROW_KERNELS + CULL_KERNELS,
     "pallas": ("field_fwd", "field_bwd") + ROW_KERNELS,
 }
 TOOLS_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd")
@@ -1224,6 +1231,83 @@ def main() -> int:
 
     rows_vs_plain()
 
+    @phase("cull kernels L1-L3 vs the chain (100k, cam 0, the train spec and the probe's)")
+    @torch.no_grad()
+    def cull_vs_plain():
+        """L1 (`cull_geometry`), L2 (`cull_layout`) and L3 (`wide_gather_fwd`
+        / `_bwd`) on the bench scene at the centre camera against the plain
+        chain on the same CUDA tensors, bit for bit on every output (floats
+        by their bits), at the tuned train spec and at the capacity
+        `tune_rsort_spec` probes with; a second launch equal to the first;
+        the chain's times and bytes bounds (the kernels' own times come from
+        CUDA graph replays in the schedule phase)."""
+        grid = shell_grid(pcam, box, NS, START, END, C_LIGHT, DELTA_T)
+
+        def same(a, b):
+            if a.dtype == torch.float32:
+                a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+            return a.shape == b.shape and torch.equal(a, b)
+
+        probe = fr.probe_spec(spec, scene.capacity, NS, nb)
+        for tag, sp in (("", spec), (" (probe capacity)", probe)):
+            n_tt, n_pt = -(-NS // sp.t_theta), -(-NS // sp.t_phi)
+            b_total = fr._rect_bits(n_tt, n_pt)[2]
+            args = (scene.means.detach(), scene.scales.detach(), scene.alive, pcam,
+                    grid.theta, grid.phi, grid.r, sp)
+            k1 = lambda: fr._cull_geometry(*args)
+            p1 = lambda: fr._cull_geometry_plain(*args)
+            o1, r1 = k1(), p1()
+            check(all(same(a, b) for a, b in zip(o1, r1)),
+                  f"L1 cull_geometry == the chain (bit for bit: d, radius, word, valid_g, "
+                  f"counts, key, geom){tag}")
+            check(all(same(a, b) for a, b in zip(k1(), o1)),
+                  f"L1 second launch equals the first bit for bit{tag}")
+            packed_s, perm = torch.sort(o1.key, stable=True)
+            k2 = lambda: fr._layout_launch(packed_s, perm, b_total, sp)
+            p2 = lambda: fr._layout_plain(packed_s, perm, b_total, sp)
+            o2, r2 = k2(), p2()
+            check(all(same(a, b) for a, b in zip(o2, r2)),
+                  f"L2 cull_layout == the chain (src, inv_perm, n_groups {int(o2.n_groups)} "
+                  f"of {sp.max_groups}){tag}")
+            check(all(same(a, b) for a, b in zip(k2(), o2)),
+                  f"L2 second launch equals the first bit for bit{tag}")
+            gen = torch.Generator(device=dev).manual_seed(3)
+            gw = torch.randn((scene.capacity, 11), generator=gen, device=dev)
+            k3 = lambda: fr._wide_gather_launch(gw, o1.geom, o2.perm, o2.src)
+            p3 = lambda: fr._wide_gather_plain(gw, o1.geom, o2.perm, o2.src)
+            o3 = k3()
+            check(same(o3, p3()) and same(k3(), o3),
+                  f"L3 wide_gather_fwd == the chain, and a second launch (bit for bit){tag}")
+            go = torch.randn(o3.shape, generator=gen, device=dev)
+            k4 = lambda: fr._wide_gather_bwd_launch(go, o2.inv_perm, 11)
+            p4 = lambda: fr._wide_gather_bwd_plain(go, o2.inv_perm, 11)
+            o4 = k4()
+            check(same(o4, p4()) and same(k4(), o4),
+                  f"L3 wide_gather_bwd == the chain, and a second launch (bit for bit){tag}")
+            if tag:
+                continue
+            g, g_pad = scene.capacity, o2.src.shape[0]
+            # Each input read once, each output written once.
+            kernel_rows["cull_geometry"] = dict(
+                max_abs_err=0.0, plain_ms=cuda_time(p1, 10),
+                bound=bound("cull_geometry", f"{g} rows", nbytes(*args[:7], *o1), 0, 0))
+            kernel_rows["cull_layout"] = dict(
+                max_abs_err=0.0, plain_ms=cuda_time(p2, 10),
+                bound=bound("cull_layout", f"{g} rows -> {g_pad} slots",
+                            nbytes(packed_s, perm, o2.src, o2.inv_perm), 0, 0))
+            kernel_rows["wide_gather_fwd"] = dict(
+                max_abs_err=0.0, plain_ms=cuda_time(p3, 10),
+                bound=bound("wide_gather_fwd", f"{g_pad} slots x {o3.shape[1]} columns",
+                            nbytes(gw, o1.geom, perm, o2.src, o3), 0, 0))
+            kernel_rows["wide_gather_bwd"] = dict(
+                max_abs_err=0.0, plain_ms=cuda_time(p4, 10),
+                bound=bound("wide_gather_bwd", f"{g} rows x 11 columns",
+                            nbytes(o2.inv_perm, o4) + 11 * 4 * g, 0, 0))
+        log_rows({k: kernel_rows[k] for k in CULL_KERNELS})
+        return True
+
+    cull_vs_plain()
+
     @phase("K1-K4 vs plain versions at the tools' spec (100k, cam 0, t_chunk 32)")
     def rsort_kernels_tools_spec():
         # The spec `tools/microbench --rsort` and cullbench tune: 7 radial
@@ -1602,6 +1686,13 @@ def main() -> int:
         # The kernels line: the train spec's graph replay.
         kernel_rows["cull_reduce"]["ms"] = res[200]["k1_graph_ms"]
         kernel_rows["build_work_lists"]["ms"] = res[200]["k2_graph_ms"]
+        for k in CULL_KERNELS:
+            if k in kernel_rows:
+                kernel_rows[k]["ms"] = res[200][f"{k}_graph_ms"]
+        log("CUDA graph replay at t_chunk 200: " + ", ".join(
+            f"{k} {res[200][f'{k}_graph_ms']:.5f} ms" for k in CULL_KERNELS)
+            + f", rsort_cull {res[200]['cull_graph_ms']:.5f} ms (L1, the sort, L2, L3, the "
+            f"cast, K1, K2), on {card}")
         return res
 
     schedule_costs()

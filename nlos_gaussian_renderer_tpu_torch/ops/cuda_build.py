@@ -9,8 +9,9 @@ missing `nvcc` or a failed build raises.
 
 `KERNELS` registers every kernel of the port (its source, the TPU kernel it
 replaces, its launch count; `listed_pairs`, the tracing counter of
-`utils/profiling`, and `gaussian_rows_fwd` / `_bwd`, the per-Gaussian rows
-of `ops/gaussian_rows`, replace none); the wrappers in `ops/fused*.py` and
+`utils/profiling`, `gaussian_rows_fwd` / `_bwd`, the per-Gaussian rows
+of `ops/gaussian_rows`, and the rsort cull's `cull_geometry`, `cull_layout`
+and `wide_gather_fwd` / `_bwd` replace none); the wrappers in `ops/fused*.py` and
 `tools/microbench.py` launch through it and check their tensors with
 `check_tensor`.
 """
@@ -52,6 +53,10 @@ SIGNATURES = {
     "listed_pairs": [_P] * 4 + [_I] * 6 + [_P],
     "gaussian_rows_fwd": [_P] * 10 + [_I] * 3 + [_F] + [_P],
     "gaussian_rows_bwd": [_P] * 16 + [_I] * 3 + [_F] + [_P],
+    "cull_geometry": [_P] * 14 + [_I] * 11 + [_F] * 3 + [_P],
+    "cull_layout": [_P] * 6 + [_I] * 6 + [_P],
+    "wide_gather_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "wide_gather_bwd": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -149,6 +154,7 @@ def error_string(code: int) -> str:
 _JAX = "nlos_gaussian_renderer_tpu/ops"
 _SRC = "nlos_gaussian_renderer_tpu_torch/csrc"
 _ROW_CHAIN = "none: the per-Gaussian row chain XLA fused on the TPU"
+_CULL_CHAIN = "none: the rsort cull's chain XLA ran on the TPU"
 
 
 class Kernel:
@@ -195,6 +201,14 @@ KERNELS = {
                "none: the tracing counter cull.listed_pairs"),
         Kernel("gaussian_rows_fwd", f"{_SRC}/gaussian_rows_fwd.cu", _ROW_CHAIN),
         Kernel("gaussian_rows_bwd", f"{_SRC}/gaussian_rows_bwd.cu", _ROW_CHAIN),
+        Kernel("cull_geometry", f"{_SRC}/cull_geometry.cu",
+               f"{_CULL_CHAIN} (fused_rsort._cull_geometry)"),
+        Kernel("cull_layout", f"{_SRC}/cull_layout.cu",
+               f"{_CULL_CHAIN} (fused_rsort._layout_from_geometry)"),
+        Kernel("wide_gather_fwd", f"{_SRC}/wide_gather.cu",
+               f"{_CULL_CHAIN} (fused_rsort.WidePadGather.forward)"),
+        Kernel("wide_gather_bwd", f"{_SRC}/wide_gather.cu",
+               f"{_CULL_CHAIN} (fused_rsort.WidePadGather.backward)"),
     )
 }
 

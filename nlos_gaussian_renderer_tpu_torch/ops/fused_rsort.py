@@ -3,21 +3,24 @@
 Port of `nlos_gaussian_renderer_tpu/ops/fused_rsort.py`. One render of one
 scan point:
 
-  1. **Cull geometry** (`_cull_geometry`): each Gaussian's 3-sigma sphere
-     gives a camera distance d, a radius, and a footprint RECTANGLE of
-     angular tiles, packed into one rect word
+  1. **Cull geometry** (`_cull_geometry`; kernel L1, `cull_geometry`): each
+     Gaussian's 3-sigma sphere gives a camera distance d, a radius, and a
+     footprint RECTANGLE of angular tiles, packed into one rect word
      [valid | th_lo | th_hi | ph_lo | ph_hi] (`_rect_bits`, the JAX bit
-     layout, so words compare equal across the packages).
-  2. **Layout** (`_layout_from_geometry`): a stable sort by (word, d) and
-     block-aligned pattern groups: every g_tile block is pattern-pure and
-     d-contiguous, so its radial footprint per tile is a tight interval.
+     layout, so words compare equal across the packages), with the per-tile
+     counts, the layout's sort key and the padded table's geometry columns.
+  2. **Layout** (`_layout_from_geometry`): a stable sort by (word, d) (the
+     library's sort) and block-aligned pattern groups (kernel L2,
+     `cull_layout`): every g_tile block is pattern-pure and d-contiguous,
+     so its radial footprint per tile is a tight interval.
      A frozen layout (`rsort_layout`, from a reference camera with a radial
      slack) skips this step: built once, it serves many scan points, whose
      words and block intervals are still this camera's, so the render is
      exact; a Gaussian it holds no slot for raises the overflow flag.
-  3. **Wide gather** (`WidePadGather`): the differentiable forms|weights and
-     the geometry columns ride one row gather into the padded layout; the
-     backward is the inverse-permutation gather.
+  3. **Wide gather** (`WidePadGather`; kernel L3, `wide_gather_fwd` /
+     `_bwd`): the differentiable forms|weights and the geometry columns ride
+     one row gather into the padded layout; the backward is the
+     inverse-permutation gather.
   4. **Work lists**: kernel K1 (`cull_reduce`) reads the geometry columns
      of the padded table in place and reduces each (block, tile) pair to an
      absolute active-bin range (writing the int32 words beside); kernel K2
@@ -190,11 +193,76 @@ def _padded_rows(g: int, spec: RSortSpec) -> int:
     return _cdiv(g, spec.g_tile) * spec.g_tile + spec.max_groups * spec.g_tile
 
 
+class CullGeometry(NamedTuple):
+    """Per-Gaussian cull geometry of one camera (`_cull_geometry`)."""
+
+    d: torch.Tensor  # (G,) f32 camera distance
+    radius: torch.Tensor  # (G,) f32 cull radius, -1 for dead rows
+    word: torch.Tensor  # (G,) int32 rect word, 0 when culled
+    valid_g: torch.Tensor  # (G,) bool
+    counts: torch.Tensor  # (T_ang,) int32 per-tile member counts
+    key: torch.Tensor  # (G,) int32 the layout's sort key (`_sort_keys`)
+    geom: torch.Tensor  # (G, 4) f32 padded-table columns [word | d-lo | d-hi | row]
+
+
 def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
-                   scaling_modifier: float = 1.0, slack: float = 0.0):
-    """(d, radius, word, valid_g, counts) for one camera; `word` is the
-    int32 rect word, 0 when the Gaussian is culled. `slack` (a distance)
-    widens the radial in-window test only (`rsort_layout`)."""
+                   scaling_modifier: float = 1.0, slack: float = 0.0) -> CullGeometry:
+    """The cull geometry of one camera; `word` is the int32 rect word, 0
+    when the Gaussian is culled. `slack` (a distance) widens the radial
+    in-window test only (`rsort_layout`). CPU tensors take the plain chain;
+    CUDA tensors kernel L1 (`cull_geometry`), equal to it bit for bit."""
+    ns = theta.shape[0]
+    n_tt = _cdiv(ns, spec.t_theta)
+    n_pt = _cdiv(ns, spec.t_phi)
+    _, _, b_total = _rect_bits(n_tt, n_pt)
+    if b_total > 23:
+        raise ValueError(
+            f"rect word needs {b_total} bits (> 23): it rides the padded table as "
+            f"an f32, exact to 24 bits, at this tile grid ({n_tt}x{n_pt})"
+        )
+    if on_cpu(means, scales, alive, cam, theta, phi, r):
+        return _cull_geometry_plain(means, scales, alive, cam, theta, phi, r, spec,
+                                    scaling_modifier, slack)
+    return _cull_geometry_launch(means, scales, alive, cam, theta, phi, r, spec,
+                                 scaling_modifier, slack)
+
+
+def _cull_geometry_launch(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
+                          scaling_modifier: float, slack: float) -> CullGeometry:
+    """L1 on CUDA tensors: every output in one launch (after a memset of
+    the counts)."""
+    ns, g = theta.shape[0], means.shape[0]
+    n_tt, n_pt = _cdiv(ns, spec.t_theta), _cdiv(ns, spec.t_phi)
+    b_t, b_p, b_total = _rect_bits(n_tt, n_pt)
+    for name, t, shape in (("means", means, (g, 3)), ("scales", scales, (g, 3)),
+                           ("alive", alive, (g,)), ("theta", theta, (ns,)),
+                           ("phi", phi, (ns,)), ("r", r, (r.shape[0],))):
+        check_tensor(t, name, torch.float32, shape)
+    if cam.dtype != torch.float32 or tuple(cam.shape) != (3,) or not cam.is_cuda:
+        raise ValueError(f"cam must be a (3,) float32 CUDA tensor, got {cam.dtype} "
+                         f"{tuple(cam.shape)} on {cam.device}")
+    f32 = dict(dtype=torch.float32, device=means.device)
+    i32 = dict(dtype=torch.int32, device=means.device)
+    out = CullGeometry(
+        d=torch.empty(g, **f32), radius=torch.empty(g, **f32), word=torch.empty(g, **i32),
+        valid_g=torch.empty(g, dtype=torch.bool, device=means.device),
+        counts=torch.empty(n_tt * n_pt, **i32), key=torch.empty(g, **i32),
+        geom=torch.empty((g, 4), **f32),
+    )
+    KERNELS["cull_geometry"].launch(
+        ptr(means), ptr(scales), ptr(alive), ptr(cam), ptr(theta), ptr(phi), ptr(r),
+        *(ptr(t) for t in out), cam.stride(0), g, ns, r.shape[0], spec.t_theta,
+        spec.t_phi, n_tt, n_pt, b_t, b_p, _dq_bits(b_total),
+        float(spec.sigma_cull * scaling_modifier), float(spec.margin), float(slack),
+    )
+    return out
+
+
+def _cull_geometry_plain(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
+                         scaling_modifier: float = 1.0, slack: float = 0.0) -> CullGeometry:
+    """`_cull_geometry` in PyTorch: the footprints (`angular_footprints`),
+    the per-tile counts, the rect word, the sort key and the geometry
+    columns."""
     ns = theta.shape[0]
     n_tt = _cdiv(ns, spec.t_theta)
     n_pt = _cdiv(ns, spec.t_phi)
@@ -208,12 +276,7 @@ def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
     mask = (m_th[:, :, None] & m_ph[:, None, :] & in_window[:, None, None])
     counts = mask.reshape(g, n_tt * n_pt).sum(dim=0, dtype=torch.int32)
 
-    b_t, b_p, b_total = _rect_bits(n_tt, n_pt)
-    if b_total > 23:
-        raise ValueError(
-            f"rect word needs {b_total} bits (> 23): it rides the padded table as "
-            f"an f32, exact to 24 bits, at this tile grid ({n_tt}x{n_pt})"
-        )
+    b_t, b_p, _ = _rect_bits(n_tt, n_pt)
     idx_t = torch.arange(n_tt, dtype=torch.int32, device=means.device)
     idx_p = torch.arange(n_pt, dtype=torch.int32, device=means.device)
     th_lo_i = torch.where(m_th, idx_t[None, :], n_tt).amin(dim=1)
@@ -227,7 +290,34 @@ def _cull_geometry(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
     phh = torch.clamp(ph_hi_i, 0, n_pt - 1)
     word = (((((1 << b_t) | tl) << b_t | th) << b_p | pll) << b_p) | phh
     word = torch.where(valid_g, word, 0).to(torch.int32)
-    return d, radius, word, valid_g, counts
+    return CullGeometry(d, radius, word, valid_g, counts,
+                        _sort_keys(d, word, valid_g, n_tt, n_pt, r[-1]),
+                        _geom_columns(d, radius, word))
+
+
+def _dq_bits(b_total: int) -> int:
+    """Bits of the quantised distance below the rect word in the sort key."""
+    return min(max(30 - (b_total + 1), 6), 16)
+
+
+def _sort_keys(d, word, valid_g, n_tt: int, n_pt: int, d_hi):
+    """(G,) int32 layout sort keys: the rect word (1 << b_total when culled)
+    times 2^dq_bits plus d quantised over [0, d_hi]."""
+    _, _, b_total = _rect_bits(n_tt, n_pt)
+    dq_bits = _dq_bits(b_total)
+    d_span = torch.clamp(d_hi, min=1e-6)
+    dq = torch.clamp(
+        (d / d_span * ((1 << dq_bits) - 1)).to(torch.int32), 0, (1 << dq_bits) - 1
+    )
+    key_c = torch.where(valid_g, word, 1 << b_total).to(torch.int32)
+    return key_c * (1 << dq_bits) + dq
+
+
+def _geom_columns(d, radius, word):
+    """(G, 4) f32 geometry columns of the padded table: [word | d - radius |
+    d + radius | row]."""
+    iota = torch.arange(d.shape[0], dtype=torch.float32, device=d.device)
+    return torch.stack([word.to(torch.float32), d - radius, d + radius, iota], dim=1)
 
 
 @torch.no_grad()
@@ -247,32 +337,65 @@ def rsort_layout(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
             "table's iota column (full_perm) is an f32, exact to 24 bits; shrink "
             "max_groups or g_tile"
         )
-    d, _, word, valid_g, _ = _cull_geometry(
+    geo = _cull_geometry(
         means.detach(), scales.detach(), alive, cam, theta, phi, r, spec,
         scaling_modifier, slack,
     )
-    return _layout_from_geometry(d, word, valid_g, _cdiv(ns, spec.t_theta),
-                                 _cdiv(ns, spec.t_phi), spec, d_hi=r[-1])
+    return _layout_from_geometry(geo.d, geo.word, geo.valid_g, _cdiv(ns, spec.t_theta),
+                                 _cdiv(ns, spec.t_phi), spec, d_hi=r[-1], key=geo.key)
+
+
+L2_TILE_ROWS = 1024  # sorted rows a CTA of L2's change pass (`csrc/cull_layout.cu`)
+_L2_TABLE_BYTES = 46 * 1024  # L2's group table in shared memory
 
 
 def _layout_from_geometry(d, word, valid_g, n_tt: int, n_pt: int,
-                          spec: RSortSpec, d_hi) -> RSortLayout:
-    """Stable (word, quantized d) sort + block-aligned group layout.
-
-    Integer gathers and `searchsorted` take the place of the JAX version's
-    one-hot and stair matmuls; the values are the same."""
-    g = d.shape[0]
-    dev = d.device
+                          spec: RSortSpec, d_hi, key=None) -> RSortLayout:
+    """Stable (word, quantized d) sort + block-aligned group layout. `key`
+    is `_sort_keys(d, word, valid_g, n_tt, n_pt, d_hi)` where the caller has
+    it (`_cull_geometry`'s). After the library's stable sort, CPU tensors
+    take the plain chain (`_layout_plain`); CUDA tensors kernel L2
+    (`cull_layout`), equal to it bit for bit."""
+    if key is None:
+        key = _sort_keys(d, word, valid_g, n_tt, n_pt, d_hi)
+    packed_s, perm = torch.sort(key, stable=True)
     _, _, b_total = _rect_bits(n_tt, n_pt)
-    dq_bits = min(max(30 - (b_total + 1), 6), 16)
-    d_span = torch.clamp(d_hi, min=1e-6)
-    dq = torch.clamp(
-        (d / d_span * ((1 << dq_bits) - 1)).to(torch.int32), 0, (1 << dq_bits) - 1
+    if on_cpu(packed_s, perm):
+        return _layout_plain(packed_s, perm, b_total, spec)
+    return _layout_launch(packed_s, perm, b_total, spec)
+
+
+def _layout_launch(packed_s, perm, b_total: int, spec: RSortSpec) -> RSortLayout:
+    """L2 on the sorted keys (G,) int32 and their rows (G,) int64."""
+    g = packed_s.shape[0]
+    check_tensor(packed_s, "sorted keys", torch.int32, (g,))
+    check_tensor(perm, "perm", torch.int64, (g,))
+    if 12 * spec.max_groups > _L2_TABLE_BYTES:
+        raise ValueError(
+            f"cull_layout keeps {spec.max_groups} groups' table ({12 * spec.max_groups} "
+            f"bytes) in shared memory, at most {_L2_TABLE_BYTES}: shrink max_groups"
+        )
+    dev = packed_s.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    scratch = torch.empty(_cdiv(g, L2_TILE_ROWS) * spec.max_groups + 1, dtype=torch.int32,
+                          device=dev)
+    out = RSortLayout(perm=perm, src=torch.empty(_padded_rows(g, spec), **i64),
+                      inv_perm=torch.empty(g, **i64), n_groups=torch.empty((), **i64))
+    KERNELS["cull_layout"].launch(
+        ptr(packed_s), ptr(perm), ptr(scratch), ptr(out.src), ptr(out.inv_perm),
+        ptr(out.n_groups), g, out.src.shape[0], spec.g_tile, spec.max_groups,
+        _dq_bits(b_total), 1 << b_total,
     )
-    key_c = torch.where(valid_g, word, 1 << b_total).to(torch.int32)
-    packed = key_c * (1 << dq_bits) + dq
-    packed_s, perm = torch.sort(packed, stable=True)
-    key_s = packed_s >> dq_bits
+    return out
+
+
+def _layout_plain(packed_s, perm, b_total: int, spec: RSortSpec) -> RSortLayout:
+    """The layout from the sorted keys in PyTorch. Integer gathers and
+    `searchsorted` take the place of the JAX version's one-hot and stair
+    matmuls; the values are the same."""
+    g = packed_s.shape[0]
+    dev = packed_s.device
+    key_s = packed_s >> _dq_bits(b_total)
     valid_s = key_s < (1 << b_total)
     words_s = torch.where(valid_s, key_s, 0)
 
@@ -316,24 +439,68 @@ class WidePadGather(torch.autograd.Function):
     the sort permutation then the padded block map, as one row gather pair.
     Padding slots (src == G) read a zero row. The backward is the inverse
     permutation gather: original row j gets `grad[inv_perm[j], :n_diff]`,
-    culled rows (inv_perm >= G_pad) get zero."""
+    culled rows (inv_perm >= G_pad) get zero. CPU tensors take the plain
+    concatenations and gathers; CUDA tensors kernel L3 (`wide_gather_fwd`,
+    `wide_gather_bwd`), one launch each way."""
 
     @staticmethod
     def forward(ctx, gw, geom, perm, src, inv_perm):
-        g = gw.shape[0]
-        full = torch.cat([gw, geom], dim=1)
-        full = torch.cat([full, full.new_zeros(1, full.shape[1])], dim=0)
-        perm2 = torch.cat([perm, perm.new_full((1,), g)])
         ctx.save_for_backward(inv_perm)
         ctx.n_diff = gw.shape[1]
-        return full[perm2][src]
+        if on_cpu(gw, geom, perm, src):
+            return _wide_gather_plain(gw, geom, perm, src)
+        return _wide_gather_launch(gw, geom, perm, src)
 
     @staticmethod
     def backward(ctx, grad):
         (inv_perm,) = ctx.saved_tensors
-        g_pad = grad.shape[0]
-        gz = torch.cat([grad[:, :ctx.n_diff], grad.new_zeros(1, ctx.n_diff)])
-        return gz[torch.clamp(inv_perm, max=g_pad)], None, None, None, None
+        if on_cpu(grad, inv_perm):
+            dgw = _wide_gather_bwd_plain(grad, inv_perm, ctx.n_diff)
+        else:
+            dgw = _wide_gather_bwd_launch(grad.contiguous(), inv_perm, ctx.n_diff)
+        return dgw, None, None, None, None
+
+
+def _wide_gather_launch(gw, geom, perm, src):
+    """L3's forward: the padded (G_pad, n_gw + n_geom) rows in one launch."""
+    g, g_pad = gw.shape[0], src.shape[0]
+    check_tensor(gw, "gw", torch.float32, (g, gw.shape[1]))
+    check_tensor(geom, "geom", torch.float32, (g, geom.shape[1]))
+    check_tensor(perm, "perm", torch.int64, (g,))
+    check_tensor(src, "src", torch.int64, (g_pad,))
+    out = torch.empty((g_pad, gw.shape[1] + geom.shape[1]), dtype=torch.float32,
+                      device=gw.device)
+    KERNELS["wide_gather_fwd"].launch(ptr(gw), ptr(geom), ptr(perm), ptr(src), ptr(out),
+                                      g, g_pad, gw.shape[1], geom.shape[1])
+    return out
+
+
+def _wide_gather_bwd_launch(grad, inv_perm, n_diff: int):
+    """L3's backward: (G, n_diff) rows of `grad` through `inv_perm` in one
+    launch."""
+    g, (g_pad, ld) = inv_perm.shape[0], grad.shape
+    check_tensor(grad, "grad", torch.float32)
+    check_tensor(inv_perm, "inv_perm", torch.int64, (g,))
+    dgw = torch.empty((g, n_diff), dtype=torch.float32, device=grad.device)
+    KERNELS["wide_gather_bwd"].launch(ptr(grad), ptr(inv_perm), ptr(dgw), g, g_pad, ld,
+                                      n_diff)
+    return dgw
+
+
+def _wide_gather_plain(gw, geom, perm, src):
+    """`WidePadGather`'s forward in PyTorch."""
+    g = gw.shape[0]
+    full = torch.cat([gw, geom], dim=1)
+    full = torch.cat([full, full.new_zeros(1, full.shape[1])], dim=0)
+    perm2 = torch.cat([perm, perm.new_full((1,), g)])
+    return full[perm2][src]
+
+
+def _wide_gather_bwd_plain(grad, inv_perm, n_diff: int):
+    """`WidePadGather`'s backward in PyTorch."""
+    g_pad = grad.shape[0]
+    gz = torch.cat([grad[:, :n_diff], grad.new_zeros(1, n_diff)])
+    return gz[torch.clamp(inv_perm, max=g_pad)]
 
 
 class PadGather(torch.autograd.Function):
@@ -931,8 +1098,8 @@ class RSortField(torch.autograd.Function):
 
 
 def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
-                   spec: RSortSpec, gw=None, layout: Optional[RSortLayout] = None
-                   ) -> RSortTiles:
+                   spec: RSortSpec, gw=None, layout: Optional[RSortLayout] = None,
+                   key=None, geom=None) -> RSortTiles:
     """Layout, wide gather and work lists from per-Gaussian cull geometry
     (the half of `rsort_cull` after `_cull_geometry`).
 
@@ -941,25 +1108,20 @@ def rsort_schedule(d, radius, word, valid_g, counts, r, n_tt: int, n_pt: int,
     culls keep their slots with word 0 and take the zero cotangent row
     (`inv_perm` = G_pad); a row this camera sees that the layout holds no
     slot for would be dropped, so it raises `overflowed` (the missed-slot
-    flag)."""
+    flag). `key` and `geom` are `_cull_geometry`'s sort keys and geometry
+    columns, computed here from the rest where the caller has none."""
     g = d.shape[0]
     g_pad = _padded_rows(g, spec)
     missed = None
     if layout is None:
-        layout = _layout_from_geometry(d, word, valid_g, n_tt, n_pt, spec, d_hi=r[-1])
+        layout = _layout_from_geometry(d, word, valid_g, n_tt, n_pt, spec, d_hi=r[-1],
+                                       key=key)
         inv_perm = layout.inv_perm
     else:
         inv_perm = torch.where(valid_g, layout.inv_perm, g_pad)
         missed = torch.any(valid_g & (layout.inv_perm >= g_pad))
-    geom = torch.stack(
-        [
-            word.to(torch.float32),
-            d - radius,
-            d + radius,
-            torch.arange(g, dtype=torch.float32, device=d.device),
-        ],
-        dim=1,
-    )
+    if geom is None:
+        geom = _geom_columns(d, radius, word)
     per_row = WidePadGather.apply(
         geom.new_zeros(g, 0) if gw is None else gw, geom, layout.perm,
         layout.src, inv_perm,
@@ -1012,13 +1174,14 @@ def rsort_cull(means, scales, alive, cam, theta, phi, r, spec: RSortSpec,
     """
     ns = theta.shape[0]
     with torch.no_grad():
-        d, radius, word, valid_g, counts = _cull_geometry(
+        geo = _cull_geometry(
             means.detach(), scales.detach(), alive, cam, theta, phi, r, spec,
             scaling_modifier,
         )
     return rsort_schedule(
-        d, radius, word, valid_g, counts, r,
+        geo.d, geo.radius, geo.word, geo.valid_g, geo.counts, r,
         _cdiv(ns, spec.t_theta), _cdiv(ns, spec.t_phi), spec, gw, layout,
+        key=geo.key, geom=geo.geom,
     )
 
 

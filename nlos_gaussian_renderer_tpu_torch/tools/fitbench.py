@@ -96,6 +96,9 @@ OTHER_ITERS = 100  # pallas_analytic's and pallas's chunked fits
 # The kernels a pallas_rsort train step launches: K1-K4 and the rows'.
 RSORT_KERNELS = ("cull_reduce", "build_work_lists", "rsort_fwd", "rsort_bwd",
                  "gaussian_rows_fwd", "gaussian_rows_bwd")
+# The rsort cull's kernels besides K1/K2 (L1-L3): a train step without a
+# frozen layout launches each once.
+CULL_KERNELS = ("cull_geometry", "cull_layout", "wide_gather_fwd", "wide_gather_bwd")
 # The densified regime: MCMC densification every 50 iterations from 50
 # (events at post-update counters 100, ..., 300) with SGLD noise, growing
 # from DENSIFY_GAUSSIANS toward cap_max (the default 100,000).

@@ -13,10 +13,12 @@ default, 25 chunks). In this order:
      calls, 100 of the schedule, with no synchronisation);
   2. the card's launch floor: a one-element `fill_` replayed from a CUDA
      graph of 50 captured calls (events around the replay, over 50);
-  3. K1, K2, `rsort_schedule` (layout, wide gather, K1, K2 and their glue)
-     and K2 at the capacity `tune_rsort_spec` probes with
+  3. K1, K2, `rsort_schedule` (layout, wide gather, K1, K2 and their glue),
+     K2 at the capacity `tune_rsort_spec` probes with
      (`fused_rsort.probe_spec` of the base: every (block, tile, chunk)
-     triple, whose zero tail K2 writes), each replayed the same way: the
+     triple, whose zero tail K2 writes), the cull's L1 (`cull_geometry`),
+     L2 (`cull_layout`, on sorted keys), L3 (`wide_gather_fwd`, `_bwd`) and
+     a whole `rsort_cull` with the rows, each replayed the same way: the
      host's launch latency is gone, what a wrapper launches besides its
      kernel is in; K1 and K2 timed by events once more right after their
      own graph, the order in which chip_smoke timed them before;
@@ -129,7 +131,8 @@ def _k1_call(rows, n_gw: int, g_tile: int, r, n_tt: int, n_pt: int, total_bins: 
 
 def _schedule_inputs(scene, box, spec):
     """The cull geometry, radii, tile grid and forms|weights of the centre
-    camera, and a K1 call and its output's (abs_lo, abs_hi)."""
+    camera, `rsort_cull`'s arguments there, and a K1 call and its output's
+    (abs_lo, abs_hi)."""
     from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import gaussian_rows
     from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
@@ -149,23 +152,38 @@ def _schedule_inputs(scene, box, spec):
     rows = tiles.table.detach()
     k1 = _k1_call(rows, gw.shape[1], spec.g_tile, grid.r, n_tt, n_pt, n_ch * spec.t_chunk)
     return dict(geom=geom, r=grid.r, n_tt=n_tt, n_pt=n_pt, n_ch=n_ch, gw=gw, k1=k1,
+                cull=(scene.means, scene.scales, scene.alive, cam, grid.theta, grid.phi,
+                      grid.r),
                 ranges=k1()[-2:], n_items=int(tiles.n_items[0]),
                 kb=rows.shape[0] // spec.g_tile)
 
 
 def _calls(scene, box, tc: int, spec) -> tuple[dict, dict]:
-    """(the timed calls at tuned `spec`, its row's sizes)."""
+    """(the timed calls at tuned `spec`, its row's sizes): K1, K2, the
+    schedule, K2 at the probe capacity, L1-L3 and a whole `rsort_cull`."""
     x = _schedule_inputs(scene, box, spec)
     probe = fr.probe_spec(BASES[tc], scene.capacity, NS, END - START)
     xp = _schedule_inputs(scene, box, probe)
     n_ch = x["n_ch"]
+    geo, gw = x["geom"], x["gw"]
+    packed_s, perm = torch.sort(geo.key, stable=True)
+    b_total = fr._rect_bits(x["n_tt"], x["n_pt"])[2]
+    lay = fr._layout_from_geometry(geo.d, geo.word, geo.valid_g, x["n_tt"], x["n_pt"], spec,
+                                   d_hi=x["r"][-1], key=geo.key)
+    go = torch.ones((lay.src.shape[0], gw.shape[1] + 4), device=gw.device)
     calls = dict(
         k1=x["k1"],
         k2=lambda: fr.build_work_lists(*x["ranges"], n_ch, spec.t_chunk, spec.w_max),
-        schedule=lambda: fr.rsort_schedule(*x["geom"], x["r"], x["n_tt"], x["n_pt"], spec,
-                                           x["gw"]),
+        schedule=lambda: fr.rsort_schedule(*x["geom"][:5], x["r"], x["n_tt"], x["n_pt"],
+                                           spec, x["gw"], key=x["geom"].key,
+                                           geom=x["geom"].geom),
         k2_probe=lambda: fr.build_work_lists(*xp["ranges"], n_ch, spec.t_chunk,
                                              probe.w_max),
+        cull_geometry=lambda: fr._cull_geometry(*x["cull"], spec),
+        cull_layout=lambda: fr._layout_launch(packed_s, perm, b_total, spec),
+        wide_gather_fwd=lambda: fr._wide_gather_launch(gw, geo.geom, lay.perm, lay.src),
+        wide_gather_bwd=lambda: fr._wide_gather_bwd_launch(go, lay.inv_perm, gw.shape[1]),
+        cull=lambda: fr.rsort_cull(*x["cull"], spec, gw=gw),
     )
     return calls, dict(kb=x["kb"], t_ang=x["n_tt"] * x["n_pt"], n_ch=n_ch,
                        w_max=spec.w_max, n_items=x["n_items"], probe_w=probe.w_max,

@@ -30,7 +30,7 @@ from nlos_gaussian_renderer_tpu_torch.tools import fitbench
 
 pytestmark = pytest.mark.cuda
 K = 8
-STEP_KERNELS = fitbench.RSORT_KERNELS  # K1-K4 and the rows' kernels
+STEP_KERNELS = fitbench.RSORT_KERNELS + fitbench.CULL_KERNELS  # K1-K4, rows, L1-L3
 
 
 @pytest.fixture

@@ -54,7 +54,8 @@ def test_port_has_the_mirrored_modules():
     assert kernels == {"cull_reduce.cu", "build_work_lists.cu", "rsort_fwd.cu",
                        "rsort_bwd.cu", "analytic_fwd.cu", "analytic_bwd.cu",
                        "field_fwd.cu", "field_bwd.cu", "worklist_add.cu",
-                       "listed_pairs.cu", "gaussian_rows_fwd.cu", "gaussian_rows_bwd.cu"}
+                       "listed_pairs.cu", "gaussian_rows_fwd.cu", "gaussian_rows_bwd.cu",
+                       "cull_geometry.cu", "cull_layout.cu", "wide_gather.cu"}
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
