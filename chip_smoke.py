@@ -777,8 +777,9 @@ def main() -> int:
     from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
     from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
     from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
+    from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
     from nlos_gaussian_renderer_tpu_torch.ops.render import (
-        RenderSettings, channel_weights, mse_loss, render_transient,
+        RenderSettings, mse_loss, render_transient,
     )
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
     from nlos_gaussian_renderer_tpu_torch.train import (

@@ -103,10 +103,10 @@ class Config:
     # Chunk-frozen sorted block layout for the rsort-family backends: build
     # the (pattern, d) layout ONCE per scan chunk from the scan-grid centroid
     # and reuse it for every step in the chunk. Rendering stays exact, but
-    # OFF by default — measured NEGATIVE at the 100k bench scene (12.0 ->
-    # 15.5 ms: blocks grouped by the centroid camera's footprints are loose
-    # at the scan corners, and the extra kernel work outweighs the ~2.4 ms
-    # sort+scatter saving; see docs/DESIGN.md negative results).
+    # OFF by default — measured NEGATIVE at the 100k bench scene on an H100
+    # (+0.34-0.49 ms a step: blocks grouped by the centroid camera's
+    # footprints are loose at the scan corners, n_items 2.26x there, and
+    # the extra kernel work outweighs the sort it saves).
     frozen_layout: bool = False
 
     def capacity(self, optim: "OptimizationParams") -> int:

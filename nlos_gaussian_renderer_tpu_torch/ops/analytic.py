@@ -141,11 +141,8 @@ def analytic_field_response(scene: GaussianScene, grid: ShellGrid, camera_pos,
     (`render.field_response_per_gaussian_chunked`), so only a direct call
     reaches the guard. With `gauss_group` (a Gaussian-sharded scene) the
     per-channel fields are summed over the group before compositing."""
-    from nlos_gaussian_renderer_tpu_torch.ops.render import (
-        _composite,
-        channel_weights,
-        gauss_sum,
-    )
+    from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
+    from nlos_gaussian_renderer_tpu_torch.ops.render import _composite, gauss_sum
 
     if settings.occlusion and settings.occlusion_mode != "aggregate":
         raise NotImplementedError(

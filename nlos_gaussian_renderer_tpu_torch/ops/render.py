@@ -51,10 +51,7 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import (
     rsort_cull,
     rsort_gaussian_field,
 )
-from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import (  # noqa: F401 (re-exported)
-    channel_weights,
-    view_albedo,
-)
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights, view_albedo
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import (
     ShellGrid,
     attenuation_weights,
@@ -345,7 +342,8 @@ def field_response_pallas(scene: GaussianScene, grid: ShellGrid, camera_pos,
     summed over the group's shards before compositing. Returns ((A,)
     response, this shard's overflow flag)."""
     if settings.backend not in KERNEL_BACKENDS:
-        raise NotImplementedError(f"backend {settings.backend!r} is not ported")
+        raise NotImplementedError(f"unknown kernel backend {settings.backend!r} "
+                                  f"(one of {KERNEL_BACKENDS})")
     gw, gfeat, w = grows.gaussian_rows(scene, camera_pos, active_sh_degree, settings)
     spec = settings.rsort_spec
     if settings.backend == "pallas":
@@ -382,7 +380,7 @@ def check_culling_capacity(scene: GaussianScene, camera_pos, box_points, c,
     `max_groups`, dsort's `d_max`, its rows and `w_max`). Backends without
     capacities report no overflow."""
     if settings.backend not in BACKENDS:
-        raise NotImplementedError(f"backend {settings.backend!r} is not ported")
+        raise NotImplementedError(f"unknown backend {settings.backend!r} (one of {BACKENDS})")
     if settings.backend not in KERNEL_BACKENDS:
         return {"backend": settings.backend, "overflowed": False}
     grid = shell_grid(camera_pos, box_points, settings.num_sampling_points,
@@ -442,7 +440,7 @@ def render_transient(scene: GaussianScene, camera_pos, box_points, c, delta_t,
     shard's flag (the sharded step reduces it).
     """
     if settings.backend not in BACKENDS:
-        raise NotImplementedError(f"backend {settings.backend!r} is not ported")
+        raise NotImplementedError(f"unknown backend {settings.backend!r} (one of {BACKENDS})")
     grid = shell_grid(
         camera_pos, box_points, settings.num_sampling_points, settings.start,
         settings.end, c, delta_t,

@@ -206,7 +206,7 @@ def field_bounds(scene, box, settings, cams) -> dict:
     launch each a step), from each camera's own lists."""
     from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
     from nlos_gaussian_renderer_tpu_torch.ops.fused_dsort import dsort_cull
-    from nlos_gaussian_renderer_tpu_torch.ops.render import channel_weights
+    from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
     from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
     from nlos_gaussian_renderer_tpu_torch.tools import kernel_work as kw
 

@@ -917,23 +917,25 @@ class OverflowGate:
     `run_gated`): the current step and chunk builders of `settings`, and the
     re-tunes that grow the capacities.
 
-    `run_gated` runs one step or chunk from a snapshot of the state; when
-    its render overflowed a capacity it restores the snapshot, re-fits
-    (grow only) and runs again, so no truncated gradient reaches the
-    optimizer. A re-fit that changes nothing marks `overflow_detected` and
-    keeps the overflowed result. The re-fit culls the probe scan points
-    and, unlike JAX's (probes only), the overflowed step's, chunk's or
-    window's own cameras: a scan point the probes miss is healed, not
-    recorded (the 256x256 grid's five probes do not bound `k_max` at
-    100k). With `ref_cam` (frozen layouts) the chunk builds its layouts
-    from it and every re-fit culls against one; the single step renders
-    without a layout, as JAX's `fit` does.
+    `settle` is the one replay loop: after a step, a chunk or `fit`'s
+    per-step window has run from a snapshot of the state, and its render
+    overflowed a capacity, it restores the snapshot, re-fits (grow only)
+    and runs again, so no truncated gradient reaches the optimizer. A
+    re-fit that changes nothing marks `overflow_detected` and keeps the
+    overflowed result. The re-fit culls the probe scan points and, unlike
+    JAX's (probes only), the unit's own cameras: a scan point the probes
+    miss is healed, not recorded (the 256x256 grid's five probes do not
+    bound `k_max` at 100k). `run_gated` snapshots, runs one step or chunk
+    and settles it. With `ref_cam` (frozen layouts) the chunk builds its
+    layouts from it and every re-fit culls against one; the single step
+    renders without a layout, as JAX's `fit` does.
 
     `log` (a `ChunkLog`) holds the counts of the gate's re-tunes and
     overflow replays and of its chunks' captures and replays, over every
     chunk it builds. Spans: `fit.chunk` around each `run_gated` (its
-    children `gate.snapshot`, the chunk's, `gate.overflow_read` (the host
-    read of the overflow flag), `gate.overflow_replay`), `gate.retune`."""
+    children `gate.snapshot`, the chunk's, and `settle`'s
+    `gate.overflow_read` (the host read of the overflow flag) and
+    `gate.overflow_replay`), `gate.retune`."""
 
     def __init__(self, settings: RenderSettings, optim: OptimizationParams,
                  max_sh_degree: int, probe_cams, box_points, c: float, delta_t: float,
@@ -1004,9 +1006,9 @@ class OverflowGate:
 
     def run_gated(self, chunked: bool, state: TrainState, cams, *args, what: str = "",
                   may_densify: bool = False, **kw) -> StepAux:
-        """One step (or chunk) of the current builders with the gate: one
-        host read of the overflow flag after it. `kw` goes to the chunk
-        (`step0` where it densifies)."""
+        """One run of the current `step` (or `chunk`) from a snapshot of
+        `state`, then `settle`. `kw` goes to the chunk (`step0` where it
+        densifies)."""
 
         def run():
             if chunked:
@@ -1017,35 +1019,36 @@ class OverflowGate:
         with profiling.span("fit.chunk"):
             with profiling.span("gate.snapshot"):
                 snap = snapshot_state(state)
-            aux = run()
-            with profiling.span("gate.overflow_read"):
-                overflowed = bool(aux.overflow)
-            if not overflowed:
+            return self.settle(run(), run, state, snap, cams, what, may_densify)
+
+    def settle(self, aux: StepAux, run: Callable[[], StepAux], state: TrainState,
+               snap: list, cams, what: str, may_densify: bool) -> StepAux:
+        """The gate of a unit (a step, a chunk or a window of steps) that
+        `run()` ran once from `snap`, giving `aux`: one host read of its
+        overflow flag. On overflow, up to four rounds of: restore `snap`,
+        grow the caps (re-fit on the probes plus `cams`, else force-grow
+        where the unit densified), `run()` again and read the flag. `run`
+        looks `step` and `chunk` up when called: a re-tune rebuilds them.
+        A round that grows nothing, or an overflow left after the fourth,
+        keeps the result and marks `overflow_detected`."""
+        with profiling.span("gate.overflow_read"):
+            if not bool(aux.overflow):
                 return aux
-            with profiling.span("gate.overflow_replay"):
-                replays = 0
-                while overflowed:
-                    if replays == 4:
-                        # Still overflowing after the last replay: keep the
-                        # result and record the failure.
-                        self.overflow_detected = True
-                        break
-                    replays += 1
-                    self.log.counts.add("gate.overflow_replays")
-                    print(f"WARNING: culling capacity overflow in {what} — re-tuning caps "
-                          "and re-running from the pre-overflow state")
-                    restore_state(state, snap)
-                    grown = (self.retune(state, cams)
-                             or (may_densify and self.force_grow_caps(state)))
-                    aux = run()
-                    if not grown:
-                        # Caps at the fitted maximum and still overflowing:
-                        # keep the (superset-capped) result and record the
-                        # failure.
-                        self.overflow_detected = True
-                        break
-                    with profiling.span("gate.overflow_read"):
-                        overflowed = bool(aux.overflow)
+        with profiling.span("gate.overflow_replay"):
+            for _ in range(4):
+                self.log.counts.add("gate.overflow_replays")
+                print(f"WARNING: culling capacity overflow in {what} — re-tuning caps and "
+                      "re-running from the pre-overflow state")
+                restore_state(state, snap)
+                grown = (self.retune(state, cams)
+                         or (may_densify and self.force_grow_caps(state)))
+                aux = run()
+                if not grown:
+                    break
+                with profiling.span("gate.overflow_read"):
+                    if not bool(aux.overflow):
+                        return aux
+            self.overflow_detected = True
             return aux
 
 
@@ -1080,10 +1083,11 @@ def fit(
     the losses are read once a log window. Per-step path: the overflow flag
     is OR-ed on the device and read at log boundaries. Either way a chunk
     or window whose render overflowed a capacity is replayed from its
-    starting state after a re-tune, so the final parameters equal a run
-    whose caps were big enough from the start, bit for bit, on the CPU and
-    on the card (every kernel backend sums in a fixed order; `pallas`'s row
-    gather adds its cotangents one tile at a time, `fused.TakeRows`).
+    starting state after a re-tune (`OverflowGate.settle`), so the final
+    parameters equal a run whose caps were big enough from the start, bit
+    for bit, on the CPU and on the card (every kernel backend sums in a
+    fixed order; `pallas`'s row gather adds its cotangents one tile at a
+    time, `fused.TakeRows`).
 
     MCMC densification (`optim.mcmc_densification_flag`) runs
     `densify_step` after each step whose post-update counter
@@ -1240,66 +1244,44 @@ def fit(
             fire_callback(it, aux)
         return finish(t0)
 
-    # Per-step path: the overflow flag is accumulated on the device and read
-    # at log boundaries; on overflow the window since the last boundary is
-    # replayed, steps and densify events in order, from its retained
-    # starting state with re-tuned caps.
-    def snapshot_window() -> list:
-        with profiling.span("gate.snapshot"):
-            return snapshot_state(state)
-
-    def read_overflow() -> bool:
-        with profiling.span("gate.overflow_read"):
-            return bool(of_acc)
-
-    of_acc = torch.zeros((), dtype=torch.bool, device=dev)
-    window_start = snapshot_window()
-    window_events: list = []  # ("step", it) | ("densify", it)
-    t0 = time.perf_counter()
-    for it in range(num_iters):
+    # Per-step path: the overflow flag is OR-ed on the device, and at each
+    # log boundary the gate settles the window since the last one, its
+    # steps and densify events in order.
+    def advance(it: int) -> StepAux:
         cams, targets = gather_batch(idx_all[it])
         with profiling.span("chunk.launch"):
             aux = gate.step(state, cams, targets, *consts)
-        window_events.append(("step", it))
         if fires(it):
             densify_now()
-            window_events.append(("densify", it))
             # The population just grew: re-fit the capacities before the
             # next render can truncate.
             gate.retune(state)
+        return aux
+
+    def run_window(window: range) -> StepAux:
+        of = torch.zeros((), dtype=torch.bool, device=dev)
+        for it in window:
+            aux = advance(it)
+            of = of | aux.overflow
+        return aux._replace(overflow=of)
+
+    t0 = time.perf_counter()
+    w0 = 0
+    for it in range(num_iters):
+        if it == w0:
+            with profiling.span("gate.snapshot"):
+                snap = snapshot_state(state)
+            of_acc = torch.zeros((), dtype=torch.bool, device=dev)
+        aux = advance(it)
         of_acc = of_acc | aux.overflow
         if (it + 1) % log_every == 0 or it == num_iters - 1:
-            overflowed = read_overflow()
-            replay_span = (profiling.span("gate.overflow_replay") if overflowed
-                           else contextlib.nullcontext())
-            with replay_span:
-                replays = 0
-                while overflowed:
-                    if replays == 4:
-                        gate.overflow_detected = True
-                        break
-                    replays += 1
-                    gate.log.counts.add("gate.overflow_replays")
-                    print(f"WARNING: culling capacity overflow by iter {it + 1} — "
-                          "re-tuning caps and replaying the window")
-                    steps = [j for ev, j in window_events if ev == "step"]
-                    if not gate.retune(state, cam_grid[idx_all[steps]]):
-                        gate.overflow_detected = True
-                        break
-                    restore_state(state, window_start)
-                    of_acc = torch.zeros((), dtype=torch.bool, device=dev)
-                    for ev, j in window_events:
-                        if ev == "densify":
-                            densify_now()
-                            continue
-                        cams_r, targets_r = gather_batch(idx_all[j])
-                        aux = gate.step(state, cams_r, targets_r, *consts)
-                        of_acc = of_acc | aux.overflow
-                    overflowed = read_overflow()
+            window = range(w0, it + 1)
+            aux = gate.settle(aux._replace(overflow=of_acc), lambda: run_window(window),
+                              state, snap, cam_grid[idx_all[w0:it + 1]],
+                              f"window ending at iter {it + 1}",
+                              may_densify=any(fires(j) for j in window))
             read_losses(aux)
-            of_acc = torch.zeros((), dtype=torch.bool, device=dev)
-            window_start = snapshot_window()
-            window_events = []
+            w0 = it + 1
         if callback is not None and callback_every is None:
             with profiling.span("fit.callback"):
                 callback(it, clone_state(state), aux)

@@ -25,7 +25,8 @@ from nlos_gaussian_renderer_tpu_torch.models.scene import scene_from_numpy
 from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as fa
 from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
-from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings, channel_weights
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
+from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 
 torch.set_num_threads(1)

@@ -226,13 +226,12 @@ def test_port_chunk_equals_k_eager_steps_bit_for_bit(tiny_data, chunk_case):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [pytest.param(dict(ref_cam=np.zeros(3)), id="kw0")])
-def test_scanned_chunk_options_not_ported_raise(kw):
-    """A `pallas_dsort` chunk builds (it raised until the backend was
-    ported) and, as JAX's, ignores a frozen layout's `ref_cam`, which the
-    rsort family takes."""
+def test_scanned_chunk_takes_ref_cam_on_rsort_and_ignores_it_on_dsort():
+    """A `pallas_dsort` chunk builds and, as JAX's, ignores a frozen
+    layout's `ref_cam`, which the rsort family takes."""
     from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
 
+    kw = dict(ref_cam=np.zeros(3))
     dsort = ttrain.make_scanned_train_step(RenderSettings(8, 0, 8, backend="pallas_dsort"),
                                            OptimizationParams(), 1, **kw)
     assert dsort.ref_cam is None and dsort.settings.backend == "pallas_dsort"
@@ -448,16 +447,12 @@ def test_force_grow_caps_grows_rsort_caps_only(tiny_data):
     assert not tile.force_grow_caps(None) and tile.retunes == 0
 
 
-@pytest.mark.parametrize("cfg_kw,optim_kw,item", [
-    pytest.param(dict(renderer="pallas_dsort"), {}, 9, id="cfg_kw3-optim_kw3-9"),
-])
-def test_fit_options_not_ported_raise(tiny_data, cfg_kw, optim_kw, item):
-    """The options of ROADMAP.md Queue 1 item `item` (here 9, `pallas_dsort`,
-    which raised until it was ported): `prepare_training` fits their caps
-    and `fit` trains through them, finite and without overflow."""
+def test_fit_fits_pallas_dsort_caps_and_trains(tiny_data):
+    """`prepare_training` fits `pallas_dsort`'s caps and `fit` trains
+    through them, finite and without overflow."""
     _, td = tiny_data
-    _, tcfg = configs(td, **cfg_kw)
-    optim = OptimizationParams(**optim_kw)
+    _, tcfg = configs(td, renderer="pallas_dsort")
+    optim = OptimizationParams()
     _, _, settings, _ = ttrain.prepare_training(tcfg, optim, td, device="cpu")
     assert settings.backend == tcfg.renderer
     assert settings.rsort_spec.dup_rows > 0 and settings.rsort_spec.d_max >= 3
@@ -595,17 +590,25 @@ def test_densified_chunked_path_matches_per_step_path(tiny_data, sgld):
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("sgld", [False, True])
+@pytest.mark.parametrize("sgld,per_step", [
+    pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="False-per_step"),
+    pytest.param(True, True, id="True-per_step"),
+])
 def test_densified_starved_caps_replay_equals_fitted_caps_bit_for_bit(tiny_data,
-                                                                      monkeypatch, sgld):
-    """JAX `tests/test_train.py:548`: the first chunk (two densify events
-    inside) overflows its starved caps, re-tunes and replays from its
-    starting state, densify events included; the draws are keyed on the
-    step counter, so the run equals the one with fitted caps bit for bit."""
+                                                                      monkeypatch, sgld,
+                                                                      per_step):
+    """JAX `tests/test_train.py:548`: the first chunk, or the per-step
+    path's first log window (two densify events inside), overflows its
+    starved caps, re-tunes and replays from its starting state, densify
+    events included; the draws are keyed on the step counter, so the run
+    equals the one with fitted caps bit for bit."""
     _, td = tiny_data
     tcfg, optim = densified(td, sgld_noise=sgld)
     tcfg = tcfg.replace(num_sampling_points=12)
     kw = dict(num_iters=20, log_every=10, device="cpu")
+    if per_step:
+        kw["callback"] = lambda it, st, aux: None  # forces the per-step path
     ref = ttrain.fit(tcfg, optim, td, **kw)
     calls = _starve_initial_caps(monkeypatch)
     res = ttrain.fit(tcfg, optim, td, **kw)

@@ -28,9 +28,9 @@ from nlos_gaussian_renderer_tpu_torch.models.scene import PARAM_NAMES, scene_fro
 from nlos_gaussian_renderer_tpu_torch.ops import fused_analytic as tfa
 from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as tfr
 from nlos_gaussian_renderer_tpu_torch.ops import math as tm
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     RenderSettings,
-    channel_weights,
     mse_loss,
     render_transient,
 )

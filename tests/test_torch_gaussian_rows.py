@@ -50,7 +50,7 @@ def settings(occ: bool, mod: float = 1.0, backend: str = "pallas_rsort") -> Rend
 
 def old_chain(scene, cam, active, st):
     return torch.cat([scene.quadratic_form(st.scaling_modifier),
-                      render.channel_weights(scene, cam, active, st)], 1)
+                      grows.channel_weights(scene, cam, active, st)], 1)
 
 
 def active_degree(max_deg: int) -> torch.Tensor:

@@ -54,9 +54,9 @@ from nlos_gaussian_renderer_tpu_torch.models.scene import scene_from_numpy
 from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
 from nlos_gaussian_renderer_tpu_torch.ops.fused import TileSpec, tile_points_centered_direct_t
 from nlos_gaussian_renderer_tpu_torch.ops.fused_dsort import dsort_cull, dup_gather
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     RenderSettings,
-    channel_weights,
     mse_loss,
     render_transient,
 )

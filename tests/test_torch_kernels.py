@@ -47,9 +47,9 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused import (
     TileSpec,
     tile_points_centered_direct_t,
 )
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     RenderSettings,
-    channel_weights,
     mse_loss,
     render_transient,
 )

@@ -26,7 +26,7 @@ from nlos_gaussian_renderer_tpu_torch.configs.default import OptimizationParams
 from nlos_gaussian_renderer_tpu_torch.data.zaragoza import load_zaragoza256_data
 from nlos_gaussian_renderer_tpu_torch.ops import fused_rsort as fr
 from nlos_gaussian_renderer_tpu_torch.ops import math as gmath
-from nlos_gaussian_renderer_tpu_torch.ops.render import channel_weights
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 from nlos_gaussian_renderer_tpu_torch.tools import fitbench
 

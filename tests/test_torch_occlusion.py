@@ -49,6 +49,7 @@ from nlos_gaussian_renderer_tpu_torch.models.scene import PARAM_NAMES
 from nlos_gaussian_renderer_tpu_torch.ops import math as tm
 from nlos_gaussian_renderer_tpu_torch.ops import render as tr
 from nlos_gaussian_renderer_tpu_torch.ops.analytic import analytic_field_response
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import view_albedo
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 
 torch.set_num_threads(1)
@@ -164,7 +165,7 @@ def test_dense_per_gaussian_netf_matches_manual_cumprod():
         pdf = torch.exp(-0.5 * tm.mahalanobis_direct(tp, ts.means, ts.scales,
                                                      ts.rotations)).numpy()
         op = ts.opacities[:, 0].numpy()
-        rho = tr.view_albedo(ts, torch.as_tensor(CAM), 0).numpy()
+        rho = view_albedo(ts, torch.as_tensor(CAM), 0).numpy()
     num_r, ns2 = 40, 16
     density = (pdf * op).T.reshape(-1, num_r, ns2).astype(np.float64)
     padded = np.concatenate([np.ones((density.shape[0], 1, ns2)),

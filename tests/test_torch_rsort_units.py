@@ -26,7 +26,8 @@ from nlos_gaussian_renderer_tpu_torch.ops.fused import (
     TileSpec,
     tile_points_centered_direct_t,
 )
-from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings, channel_weights
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
+from nlos_gaussian_renderer_tpu_torch.ops.render import RenderSettings
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import shell_grid
 
 torch.set_num_threads(1)

@@ -61,9 +61,9 @@ from nlos_gaussian_renderer_tpu_torch.ops.analytic import (
 )
 from nlos_gaussian_renderer_tpu_torch.ops.fused_dsort import tune_dsort_spec
 from nlos_gaussian_renderer_tpu_torch.ops.fused_rsort import RSortSpec, tune_rsort_spec
+from nlos_gaussian_renderer_tpu_torch.ops.gaussian_rows import channel_weights
 from nlos_gaussian_renderer_tpu_torch.ops.render import (
     RenderSettings,
-    channel_weights,
     render_transient,
 )
 from nlos_gaussian_renderer_tpu_torch.ops.sampling import attenuation_weights, shell_grid

@@ -182,11 +182,7 @@ def test_host_counters_equal_fit_statistics(fresh, data, monkeypatch, per_step):
     kw = dict(num_iters=12, log_every=4, device="cpu")
     optim = densified_optim()
     if per_step:
-        # Every 8: the per-step path re-fits right after a densify event,
-        # so an event inside the overflowing first window would leave the
-        # window's replay nothing to grow.
         kw["callback"] = lambda it, st, aux: None
-        optim = densified_optim(densification_interval=8)
     profiling.enable_tracing(True)
     res = train.fit(config(data, init_gaussian_num=48), optim, data, **kw)
     snap = profiling.snapshot()
